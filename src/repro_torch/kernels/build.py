@@ -1,0 +1,167 @@
+"""Build and load the port's CUDA kernels.
+
+Every kernel is CUDA C++ for ``sm_90a`` under ``kernels/csrc/`` with a
+plain C interface.  At first use the sources are compiled with ``nvcc``
+(one process per source, all started together), linked into one shared
+library under ``build/torch_kernels/`` at the repository root, and
+loaded with ``ctypes``.  The library's file name carries a digest of
+the sources and flags, so an edited kernel is rebuilt and a stale
+library is never loaded.  Nothing is built or loaded at import time:
+the CPU test suite imports every module without a compiler present.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import fcntl
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu")
+HEADERS = ("common.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: pointers and the stream as void*, sizes as int;
+# each returns the cudaError_t of its launch
+SIGNATURES = {
+    # emb w1 b1 w2 b2 cvals lam | pred choice | B d hh M n_c block_b | stream
+    "tryage_router_score": [_P] * 7 + [_P] * 2 + [_I] * 6 + [_P],
+    # emb w1 b1 w2 b2 uw1 ub1 uw2 ub2 cvals lam ladder_pos
+    # | pred sigma choice esc | B d hh M n_c block_b | stream
+    "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 6 + [_P],
+    # q k v | o | B S T H KV hd causal window | softcap scale | stream
+    "tryage_flash_attention": [_P] * 3 + [_P] + [_I] * 8 + [_F] * 2 + [_P],
+}
+
+
+@dataclasses.dataclass
+class KernelLibrary:
+    cdll: ctypes.CDLL
+    path: Path
+    build_seconds: float | None     # None: loaded an existing build
+    ptxas_log: str
+
+    def call(self, fn: str, *args) -> None:
+        """Launch through C entry point ``fn``; raise on a launch error."""
+        err = getattr(self.cdll, fn)(*args)
+        if err:
+            raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+_lock = threading.Lock()
+_loaded: KernelLibrary | None = None
+
+
+def library() -> KernelLibrary:
+    """The loaded kernel library, built on first call."""
+    global _loaded
+    with _lock:
+        if _loaded is None:
+            _loaded = _load()
+        return _loaded
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _load() -> KernelLibrary:
+    so = BUILD_DIR / f"libtryage_kernels_{_digest()}.so"
+    log = so.with_suffix(".ptxas.txt")
+    seconds = None
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # serialise concurrent builders (test workers on one card)
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():
+                seconds = _build(so, log)
+    cdll = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES.items():
+        getattr(cdll, fn).argtypes = argtypes
+        getattr(cdll, fn).restype = ctypes.c_int
+    return KernelLibrary(cdll, so, seconds,
+                         log.read_text() if log.exists() else "")
+
+
+def _build(so: Path, log: Path) -> float:
+    t0 = time.perf_counter()
+    nvcc = nvcc_path()
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in SOURCES:
+            obj = tmp / (src + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outputs = []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {src}:\n{text}")
+            outputs.append(f"== {src}\n{text}")
+        tmp_so = tmp / so.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_so),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log.write_text("".join(outputs))
+        os.replace(tmp_so, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_summary(text: str) -> dict:
+    """Per kernel entry function: registers, static shared memory and
+    spill bytes, from ``nvcc -Xptxas -v`` output."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and (m := _SPILL.search(line)):
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        elif cur is not None and (m := _USED.search(line)):
+            cur["registers"] = int(m.group(1))
+            smem = _SMEM.search(line)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out

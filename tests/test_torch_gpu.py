@@ -1,0 +1,162 @@
+"""Card-only tests of the PyTorch port (marker ``gpu``): each CUDA
+kernel against its plain PyTorch version on the same CUDA tensors, and
+the engine on the card against the engine on the CPU.
+
+This module imports neither JAX nor the JAX package, so it runs on a
+GPU host without them:  ``python -m pytest -m gpu tests/test_torch_*.py``.
+Each test decides about the card in its body and skips without one.
+
+TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``): it flips near-tie argmins.
+Tolerances: router heads rtol=atol=1e-5 and exact choices; attention
+rtol=1e-5, atol=2e-5 (the kernel's online softmax sums in another
+order than the plain full softmax).
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import objective
+from repro_torch.core.library import ExpertSpec, ModelLibrary, _enc
+from repro_torch.core.router import RouterConfig, init_router
+from repro_torch.kernels import launches
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.router_cascade import ops as rc_ops
+from repro_torch.kernels.router_score import ops as rs_ops
+from repro_torch.data.batching import mlm_batch
+from repro_torch.models.model import count_params, init_model
+from repro_torch.serving import Request, TryageEngine
+
+pytestmark = pytest.mark.gpu
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+ATTN_CASES = [  # (S, H, KV, hd, causal, window, softcap)
+    (128, 4, 4, 32, False, 0, 0.0),     # router layer
+    (128, 4, 4, 40, False, 0, 0.0),     # d=160 specialists
+    (128, 8, 8, 32, False, 0, 0.0),     # roberta-analog
+    (128, 4, 2, 32, True, 0, 0.0),
+    (32, 4, 1, 40, True, 8, 0.0),
+    (128, 2, 2, 32, False, 16, 30.0),
+    (128, 8, 8, 128, False, 0, 0.0),    # dynamic shared memory > 48 KB
+    (77, 3, 1, 64, True, 20, 10.0),     # ragged tiles
+]
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal,window,softcap", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(S, H, KV, hd, causal, window,
+                                              softcap):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(S * hd)
+    q = torch.randn(3, S, H, hd, device="cuda", generator=g)
+    k, v = (torch.randn(3, S, KV, hd, device="cuda", generator=g)
+            for _ in range(2))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+
+
+def _head_case(B, M, tied, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    d = hh = 128
+    c = {"emb": f(B, d), "w1": f(d, hh) / 11, "b1": f(hh) / 5,
+         "w2": f(hh, M) / 11, "b2": f(M) / 5, "uw1": f(d, hh) / 11,
+         "ub1": f(hh) / 5, "uw2": f(hh, M) / 11, "ub2": f(M) / 5,
+         "cvals": np.abs(f(2, M)), "lam": np.abs(f(B, 2))}
+    if tied:
+        c["w2"][:] = c["w2"][:, :1]
+        c["b2"][:] = 0.3
+        c["lam"][:] = 0.0
+    return {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+
+
+@pytest.mark.parametrize("B", [1, 3, 32, 37])
+@pytest.mark.parametrize("tied", [False, True], ids=["random", "tied"])
+def test_router_kernels_match_plain(B, tied):
+    _card()
+    M = 11
+    t = _head_case(B, M, tied, seed=B)
+    ladder = torch.from_numpy(
+        np.random.default_rng(1).permutation(M).astype(np.int32)).cuda()
+    s_args = [t[k] for k in ("emb", "w1", "b1", "w2", "b2", "cvals", "lam")]
+    c_args = [t[k] for k in ("emb", "w1", "b1", "w2", "b2", "uw1", "ub1",
+                             "uw2", "ub2", "cvals", "lam")] + [ladder]
+    got = rs_ops.router_score_fused(*s_args) + \
+        rc_ops.router_score_cascade_fused(*c_args)
+    torch.cuda.synchronize()
+    want = rs_ops.router_score_plain(*s_args) + \
+        rc_ops.router_cascade_plain(*c_args)
+    for g, w in zip(got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _library(device):
+    specs = [ExpertSpec("small", _enc("small", 1, 32, 2, 64, 64), {}, 0.5),
+             ExpertSpec("mid", _enc("mid", 1, 48, 2, 96, 64), {}, 0.5),
+             ExpertSpec("big", _enc("big", 2, 80, 2, 160, 64), {}, 0.9)]
+    for i, e in enumerate(specs):
+        e.params = init_model(e.cfg, seed=i, device=device)
+        e.n_params = count_params(e.params)
+    return ModelLibrary(specs)
+
+
+def test_engine_on_card_matches_cpu():
+    """A mixed-flag, mixed-threshold workload (one batch without cascade
+    traffic, so both router kernels run) through the kernels on the
+    card and through the plain versions on the CPU."""
+    _card()
+    rc = RouterConfig(n_models=3, vocab_size=64, num_layers=1, d_model=32,
+                      num_heads=2, d_ff=64)
+    lib_cpu = _library("cpu")
+    router_cpu = init_router(rc, seed=9, uncertainty=True, device="cpu")
+    lib_gpu = copy.deepcopy(lib_cpu)
+    for e in lib_gpu.experts:
+        e.params.cuda()
+    router_gpu = copy.deepcopy(router_cpu).cuda()
+    rng = np.random.default_rng(0)
+    mb = mlm_batch(rng.integers(4, 64, size=(96, 32)).astype(np.int32), rng,
+                   0.2, 64)
+    mix = [{}, {"size": 1.0}, {"size": 8.0}, {"recency": 2.0}]
+    thr = [0.55, 0.6, 0.65, 0.99]
+    out = []
+    for lib, router, dev in ((lib_cpu, router_cpu, "cpu"),
+                             (lib_gpu, router_gpu, "cuda")):
+        eng = TryageEngine(lib, router, rc,
+                           [objective.size_constraint(lib),
+                            objective.recency_constraint(lib)],
+                           max_batch=32, fused_cascade=True, device=dev)
+        for i in range(96):
+            eng.submit(Request(uid=i, tokens=mb["tokens"][i],
+                               targets=mb["targets"][i], mask=mb["mask"][i],
+                               lambdas=mix[i % 4],
+                               min_confidence=thr[i % 4] if i >= 32 else 0.0))
+        launches.reset_launch_counts()
+        out.append({r.uid: r for r in eng.run()})
+        counts = launches.launch_counts()
+    assert all(n > 0 for n in counts.values()), counts
+    cpu, gpu = out
+    for uid, r in cpu.items():
+        assert (gpu[uid].expert, gpu[uid].cascade_depth) == (
+            r.expert, r.cascade_depth), uid
+        np.testing.assert_allclose(gpu[uid].loss, r.loss, rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(gpu[uid].pred_losses, r.pred_losses,
+                                   rtol=1e-5, atol=1e-5)
