@@ -28,10 +28,10 @@ from repro_torch.kernels.router_score.ops import (ROW_TILE, as_f32,
                                                    launch_plan)
 
 
-def decision_plan(B: int, block_b: int | None = None) -> dict:
+def decision_plan(B: int) -> dict:
     """The launch geometry a ``router_route_cascade`` call with this
     batch uses."""
-    return launch_plan(B, ROW_TILE if block_b is None else block_b)
+    return launch_plan(B, ROW_TILE)
 
 
 def router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
@@ -57,7 +57,7 @@ def router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
 
 
 def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
-                               cvals, lam, ladder_pos, *, block_b=None):
+                               cvals, lam, ladder_pos):
     """emb (B, d); loss head w1/b1/w2/b2 and uncertainty head
     uw1/ub1/uw2/ub2 (same shapes); cvals (n_c, M); lam (B, n_c);
     ladder_pos (M,) int32, each expert's rung on the escalation ladder.
@@ -78,7 +78,7 @@ def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
                                     cvals, lam, ladder_pos)
     B, d = emb.shape
     hh = w2.shape[0]
-    plan = decision_plan(B, block_b)
+    plan = decision_plan(B)
     dev = emb.device
     pred = torch.empty(B, M, dtype=torch.float32, device=dev)
     sigma = torch.empty(B, M, dtype=torch.float32, device=dev)
@@ -101,7 +101,7 @@ router_score_cascade_fused.launches = 0
 
 
 def router_route_cascade(emb, head_params, unc_params, constraints, lambdas,
-                         ladder_pos, *, block_b=None):
+                         ladder_pos):
     """Full fused cascade decision in one kernel launch.
 
     constraints: (n_c, M); lambdas: (B, n_c); ladder_pos: (M,) int —
@@ -113,4 +113,4 @@ def router_route_cascade(emb, head_params, unc_params, constraints, lambdas,
         emb, head_params["w1"], head_params["b1"], head_params["w2"],
         head_params["b2"], unc_params["w1"], unc_params["b1"],
         unc_params["w2"], unc_params["b2"], as_f32(constraints, dev),
-        as_f32(lambdas, dev), pos.contiguous(), block_b=block_b)
+        as_f32(lambdas, dev), pos.contiguous())

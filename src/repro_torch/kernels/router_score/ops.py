@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-ROW_TILE = 8   # rows per thread block (the kernel's block_b default)
+ROW_TILE = 8   # rows per thread block
 
 
 def launch_plan(B: int, block_b: int) -> dict:
@@ -38,9 +38,9 @@ def launch_plan(B: int, block_b: int) -> dict:
     return {"block_b": eff, "padded_batch": padded, "grid": padded // eff}
 
 
-def decision_plan(B: int, block_b: int | None = None) -> dict:
+def decision_plan(B: int) -> dict:
     """The launch geometry a ``router_route`` call with this batch uses."""
-    return launch_plan(B, ROW_TILE if block_b is None else block_b)
+    return launch_plan(B, ROW_TILE)
 
 
 def softplus(x):
@@ -84,7 +84,7 @@ def check_head(name, emb, w1, b1, w2, b2, cvals, lam):
         raise ValueError(f"{name}: no kernel for {emb.device}")
 
 
-def router_score_fused(emb, w1, b1, w2, b2, cvals, lam, *, block_b=None):
+def router_score_fused(emb, w1, b1, w2, b2, cvals, lam):
     """emb (B, d); w1 (d, hh); b1 (hh,); w2 (hh, M); b2 (M,);
     cvals (n_c, M); lam (B, n_c), all float32 on one device.
     Returns (pred (B, M) f32, choice (B,) int32)."""
@@ -93,7 +93,7 @@ def router_score_fused(emb, w1, b1, w2, b2, cvals, lam, *, block_b=None):
         return router_score_plain(emb, w1, b1, w2, b2, cvals, lam)
     B, d = emb.shape
     hh, M = w2.shape
-    plan = decision_plan(B, block_b)
+    plan = decision_plan(B)
     pred = torch.empty(B, M, dtype=torch.float32, device=emb.device)
     choice = torch.empty(B, dtype=torch.int32, device=emb.device)
     stream = torch.cuda.current_stream(emb.device).cuda_stream
@@ -128,7 +128,7 @@ def router_head(emb, head_params):
     return pred
 
 
-def router_route(emb, head_params, constraints, lambdas, *, block_b=None):
+def router_route(emb, head_params, constraints, lambdas):
     """Full fused decision: MLP head -> softplus -> per-request
     lambda-weighted constraint add -> argmin, in one kernel launch.
 
@@ -138,4 +138,4 @@ def router_route(emb, head_params, constraints, lambdas, *, block_b=None):
     return router_score_fused(
         emb, head_params["w1"], head_params["b1"], head_params["w2"],
         head_params["b2"], as_f32(constraints, emb.device),
-        as_f32(lambdas, emb.device), block_b=block_b)
+        as_f32(lambdas, emb.device))

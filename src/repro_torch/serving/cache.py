@@ -111,14 +111,6 @@ class DecisionCache:
         self._entries.move_to_end(key)
         return entry
 
-    def lookup(self, key: tuple) -> tuple[tuple | None, str]:
-        """Tier-attributed probe: ``(entry, "t1")`` on a hit, ``(None,
-        "")`` on a miss — the uniform surface the Route stage uses so a
-        plain cache and a ``DecisionCacheStack`` count tier telemetry
-        identically."""
-        entry = self.get(key)
-        return entry, ("t1" if entry is not None else "")
-
     def put(
         self,
         key: tuple,

@@ -81,8 +81,6 @@ class EngineStats:
         default_factory=lambda: deque(maxlen=65536))
     cache_hits: int = 0
     cache_misses: int = 0
-    cache_tier_hits: dict = dataclasses.field(
-        default_factory=lambda: defaultdict(int))
     cache_key_dropped_lambda: int = 0
     escalations: int = 0
     cascade_depth_hist: dict = dataclasses.field(

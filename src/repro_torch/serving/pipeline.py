@@ -83,14 +83,13 @@ class RouteStage:
                         for r in ctx.reqs]
             misses = []
             for i, key in enumerate(ctx.keys):
-                hit, tier = eng.cache.lookup(key)
+                hit = eng.cache.get(key)
                 if hit is None:
                     misses.append(i)
                 else:
                     (ctx.pred[i], ctx.choice[i], ctx.depth[i],
                      ctx.confidence[i]) = hit
                     ctx.cached[i] = True
-                    eng.stats.cache_tier_hits[tier] += 1
             eng.stats.cache_hits += B - len(misses)
             eng.stats.cache_misses += len(misses)
         if misses:
