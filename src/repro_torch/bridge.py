@@ -6,11 +6,14 @@ over by a caller — this module imports neither package).  The port's
 modules keep the same leaf names and layouts, so the mapping is
 structural:
 
-* ``units`` — the JAX model stacks its per-layer tree along a leading
-  layer axis and scans over it; slice ``i`` becomes ``layers.i``;
+* ``units`` — the JAX model stacks each unit's per-layer trees
+  ``l0 .. l{P-1}`` along a leading unit axis and scans over it; slice
+  ``u`` of ``units.l{j}`` becomes ``layers.{u * P + j}``, and the
+  remainder layers ``rem.l{j}`` follow as ``layers.{U * P + j}``;
 * attention ``wq``/``wk``/``wv`` (d, H, hd) and ``wo`` (H, hd, d),
-  layernorm ``scale``/``bias``, the MLP's ``wi``/``wo``, the tied
-  ``embed.table`` and ``final_norm`` copy as they are;
+  the mLSTM's and sLSTM's ``mix`` leaves, layernorm ``scale``/``bias``,
+  the MLP's ``wi``/``wo``, the tied ``embed.table`` and ``final_norm``
+  copy as they are;
 * a router tree's ``encoder``, ``head`` and optional ``unc``.
 
 Loading is strict: a missing or extra leaf, or a shape that differs,
@@ -28,7 +31,8 @@ from torch import nn
 from repro_torch.core.library import ExpertSpec, ModelLibrary
 from repro_torch.core.router import Router, RouterConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.common import AttnConfig, ModelConfig
+from repro_torch.models.blocks import KINDS
+from repro_torch.models.common import AttnConfig, ModelConfig, SSMConfig
 from repro_torch.models.model import Model, count_params
 
 
@@ -42,18 +46,30 @@ def _flatten(tree, prefix=""):
 
 def model_state(tree: dict) -> dict:
     """A JAX model tree as the port's ``Model.state_dict()`` names."""
+    units = tree.get("units", {})
+    P = len(units)
+    U = next(_flatten(units))[1].shape[0] if P else 0
     state = {}
     for name, arr in _flatten(tree):
-        if name.startswith("units.l0."):
-            # one block per unit (layer_pattern ("attn",)): unstack
-            leaf = name[len("units.l0."):]
-            for i in range(arr.shape[0]):
-                state[f"layers.{i}.{leaf}"] = arr[i]
-        elif name.startswith("units."):
-            raise ValueError(f"{name}: only one-block units are ported")
+        part, _, rest = name.partition(".")
+        if part in ("units", "rem"):
+            lj, _, leaf = rest.partition(".")
+            j = int(lj[1:])
+            if part == "units":
+                for u in range(arr.shape[0]):
+                    state[f"layers.{u * P + j}.{leaf}"] = arr[u]
+            else:
+                state[f"layers.{U * P + j}.{leaf}"] = arr
         else:
             state[name] = arr
     return state
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.array(arr, copy=True)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes' type: torch reads its bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _load(module: nn.Module, state: dict) -> None:
@@ -68,21 +84,28 @@ def _load(module: nn.Module, state: dict) -> None:
         if tuple(arr.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, the port "
                              f"has {tuple(own[name].shape)}")
-        tensors[name] = torch.from_numpy(np.array(arr, copy=True))
+        tensors[name] = _tensor(arr)
     module.load_state_dict(tensors, strict=True)
 
 
 def model_config_from(cfg) -> ModelConfig:
     """The port's ``ModelConfig`` for a JAX-package config, read field
-    by field; the config must be a dense one-block-unit encoder."""
-    if tuple(getattr(cfg, "layer_pattern", ("attn",))) != ("attn",) or any(
-            getattr(cfg, "moe_pattern", (False,))):
-        raise ValueError(f"{cfg.name}: only dense attention blocks are ported")
+    by field; its blocks must be dense attention, mLSTM or sLSTM ones
+    (no MoE, no Mamba)."""
+    kinds = set(cfg.layer_pattern)
+    if cfg.moe is not None or any(cfg.moe_pattern) or not kinds <= set(KINDS):
+        raise ValueError(f"{cfg.name}: blocks {sorted(kinds)} with moe "
+                         f"{cfg.moe_pattern}; only {KINDS} without MoE are "
+                         f"ported")
     attn = AttnConfig(**{f.name: getattr(cfg.attn, f.name)
                          for f in dataclasses.fields(AttnConfig)})
+    ssm = None if cfg.ssm is None else SSMConfig(
+        **{f.name: getattr(cfg.ssm, f.name)
+           for f in dataclasses.fields(SSMConfig)})
     fields = {f.name: getattr(cfg, f.name)
-              for f in dataclasses.fields(ModelConfig) if f.name != "attn"}
-    return ModelConfig(attn=attn, **fields)
+              for f in dataclasses.fields(ModelConfig)
+              if f.name not in ("attn", "ssm")}
+    return ModelConfig(attn=attn, ssm=ssm, **fields)
 
 
 def model_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:

@@ -26,7 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu")
+SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
+           "mlstm_scan.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -44,6 +45,8 @@ SIGNATURES = {
     "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 6 + [_P],
     # q k v | o | B S T H KV hd causal window | softcap scale | stream
     "tryage_flash_attention": [_P] * 3 + [_P] + [_I] * 8 + [_F] * 2 + [_P],
+    # q k v i f C0 n0 m0 | h C1 n1 m1 | B S H dh chunk | scale | stream
+    "tryage_mlstm_scan": [_P] * 8 + [_P] * 4 + [_I] * 5 + [_F] + [_P],
 }
 
 

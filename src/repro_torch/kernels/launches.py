@@ -4,6 +4,7 @@ through."""
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
 
@@ -11,6 +12,7 @@ WRAPPERS = {
     "router_score": rs_ops.router_score_fused,
     "router_cascade": rc_ops.router_score_cascade_fused,
     "flash_attention": fa_ops.flash_attention,
+    "mlstm_scan": ml_ops.mlstm_chunkwise,
 }
 
 

@@ -1,1 +1,3 @@
-"""The dense encoder family: config, layers, attention, blocks, model."""
+"""The model families ported so far: the dense encoder (router and
+library experts) and the xLSTM family of the zoo (mLSTM and sLSTM
+cells).  Config, layers, attention, ssm, blocks, model."""

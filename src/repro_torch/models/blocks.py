@@ -1,6 +1,7 @@
-"""The dense attention block: pre-norm attention and pre-norm MLP, each
-with its residual (``repro.models.blocks.apply_block`` for kind
-``"attn"`` without MoE)."""
+"""Per-layer blocks (``repro.models.blocks``): pre-norm mixer of kind
+``"attn"``, ``"mlstm"`` or ``"slstm"`` with its residual, then, when
+``d_ff > 0``, a pre-norm dense MLP with its residual.  MoE and Mamba
+blocks come with the rest of the model zoo."""
 
 from __future__ import annotations
 
@@ -8,37 +9,85 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+
+KINDS = ("attn", "mlstm", "slstm")
+MODES = ("train", "encode", "prefill", "decode")
 
 
 class Block(nn.ModuleDict):
     """Parameters keyed as the JAX package's block tree: ``norm1``,
-    ``mix`` (attention), and with ``d_ff > 0`` ``norm2`` and ``mlp``."""
+    ``mix`` (the mixer's parameters), and with ``d_ff > 0`` ``norm2``
+    and ``mlp``."""
 
-    def __init__(self, gen: torch.Generator, cfg: ModelConfig,
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, kind: str,
                  layer_idx: int):
+        if kind not in KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet "
+                f"(ROADMAP.md queue 1, item 14)")
         dtype = cfg.torch_dtype
+        init_mix = {"attn": attn_lib.init_attention,
+                    "mlstm": ssm_lib.init_mlstm,
+                    "slstm": ssm_lib.init_slstm}[kind]
         mods = {"norm1": init_norm(cfg.d_model, cfg.norm_kind),
-                "mix": attn_lib.init_attention(gen, cfg, dtype)}
+                "mix": init_mix(gen, cfg, dtype)}
         if cfg.d_ff > 0:
             mods["norm2"] = init_norm(cfg.d_model, cfg.norm_kind)
             mods["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act)
         super().__init__(mods)
         self.cfg = cfg
+        self.kind = kind
         self.layer_idx = layer_idx
 
-    def forward(self, x, positions):
-        return apply_block(self, x, self.cfg, layer_idx=self.layer_idx,
-                           positions=positions)
+    def forward(self, x, *, mode, positions, state=None):
+        return apply_block(self, x, self.cfg, self.kind, mode=mode,
+                           layer_idx=self.layer_idx, positions=positions,
+                           state=state)
 
 
-def apply_block(p, x, cfg: ModelConfig, *, layer_idx: int, positions):
+def init_block_state(cfg: ModelConfig, kind: str, batch: int, device=None):
+    """Decode-time recurrent state of one layer."""
+    if kind == "mlstm":
+        return ssm_lib.init_mlstm_state(batch, cfg, device)
+    if kind == "slstm":
+        return ssm_lib.init_slstm_state(batch, cfg, device)
+    raise NotImplementedError(
+        f"{cfg.name}: no decode state for {kind!r} blocks yet (the KV cache "
+        f"is ROADMAP.md queue 1, item 14)")
+
+
+def apply_block(p, x, cfg: ModelConfig, kind: str, *, mode: str,
+                layer_idx: int, positions, state=None):
+    """Returns (x, new_state); the state is None in ``train`` and
+    ``encode`` modes.  Prefill starts every recurrent layer from zeros,
+    as the JAX package does; decode steps from ``state``."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
     h = apply_norm(p["norm1"], x, cfg.norm_eps, cfg.norm_kind)
-    window = attn_lib.layer_window(cfg, layer_idx)
-    x = x + attn_lib.attend_full(p["mix"], h, cfg, positions,
-                                 window).to(x.dtype)
+    decode = mode == "decode"
+    new_state = None
+    if kind == "attn":
+        if mode in ("prefill", "decode"):
+            raise NotImplementedError(
+                "attention prefill/decode needs the KV cache (ROADMAP.md "
+                "queue 1, item 14)")
+        y = attn_lib.attend_full(p["mix"], h, cfg, positions,
+                                 attn_lib.layer_window(cfg, layer_idx))
+    elif kind == "mlstm":
+        y, new_state = (ssm_lib.mlstm_step(p["mix"], h, state, cfg) if decode
+                        else ssm_lib.mlstm_full(p["mix"], h, cfg))
+    elif kind == "slstm":
+        y, new_state = (ssm_lib.slstm_step(p["mix"], h, state, cfg) if decode
+                        else ssm_lib.slstm_full(p["mix"], h, cfg))
+    else:
+        raise ValueError(kind)
+    x = x + y.to(x.dtype)
     if "mlp" in p:
         h2 = apply_norm(p["norm2"], x, cfg.norm_eps, cfg.norm_kind)
         x = x + apply_mlp(p["mlp"], h2, cfg.act).to(x.dtype)
-    return x
+    if mode in ("train", "encode"):
+        new_state = None
+    return x, new_state

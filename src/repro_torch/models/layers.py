@@ -4,7 +4,8 @@ Each ``apply_*`` takes a mapping of parameter tensors (a plain dict or
 an ``nn.ParameterDict``) keyed as in ``repro.models.layers``, so the
 same functions serve the modules of ``models.model`` and the parity
 tests.  ``init_*`` build those ``nn.ParameterDict``s from a
-``torch.Generator`` on the CPU; callers move the finished module.
+``torch.Generator``, on the device that is current (``with device:``)
+and that the generator lives on.
 """
 
 from __future__ import annotations

@@ -10,7 +10,11 @@ TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``): it flips near-tie argmins.
 Tolerances: router heads rtol=atol=1e-5 and exact choices; attention
 rtol=1e-5, atol=2e-5 (the kernel's online softmax sums in another
-order than the plain full softmax).
+order than the plain full softmax); mLSTM scan: each of h, C1, n1, m1
+within 1e-4 of the reference's largest magnitude (f32 sums over up to
+1024 terms in another order, then h divides by a running denominator);
+the xLSTM on the card against the CPU: logits atol=rtol=1e-4 and the
+same greedy tokens.
 """
 
 import copy
@@ -23,7 +27,10 @@ from repro_torch.core import objective
 from repro_torch.core.library import ExpertSpec, ModelLibrary, _enc
 from repro_torch.core.router import RouterConfig, init_router
 from repro_torch.kernels import launches
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
 from repro_torch.data.batching import mlm_batch
@@ -151,7 +158,8 @@ def test_engine_on_card_matches_cpu():
         launches.reset_launch_counts()
         out.append({r.uid: r for r in eng.run()})
         counts = launches.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[n] > 0 for n in ("router_score", "router_cascade",
+                                       "flash_attention")), counts
     cpu, gpu = out
     for uid, r in cpu.items():
         assert (gpu[uid].expert, gpu[uid].cascade_depth) == (
@@ -160,3 +168,68 @@ def test_engine_on_card_matches_cpu():
                                    atol=1e-4)
         np.testing.assert_allclose(gpu[uid].pred_losses, r.pred_losses,
                                    rtol=1e-5, atol=1e-5)
+
+
+MLSTM_CASES = [  # (B, S, H, dh, carried state)
+    (2, 96, 2, 64, True),
+    (1, 512, 2, 64, False),
+    (1, 96, 1, 1024, True),
+    (2, 512, 1, 1024, False),
+    (1, 97, 1, 40, True),      # prime S: chunks of 1; ragged column tile
+]
+
+
+@pytest.mark.parametrize("B,S,H,dh,carried", MLSTM_CASES)
+def test_mlstm_scan_kernel_matches_plain(B, S, H, dh, carried):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(S * dh)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    q, k, v = r(B, S, H, dh), r(B, S, H, dh), r(B, S, H, dh)
+    i_pre, f_pre = r(B, S, H), r(B, S, H) + 3.0
+    if carried:
+        state = {"C": r(B, H, dh, dh) * 0.3, "n": r(B, H, dh) * 0.3,
+                 "m": r(B, H)}
+    else:
+        state = {"C": torch.zeros(B, H, dh, dh, device="cuda"),
+                 "n": torch.zeros(B, H, dh, device="cuda"),
+                 "m": torch.zeros(B, H, device="cuda")}
+    args = (q, k, v, i_pre, f_pre, state)
+    before = ml_ops.mlstm_chunkwise.launches
+    h, new = ml_ops.mlstm_chunkwise(*args)
+    torch.cuda.synchronize()
+    assert ml_ops.mlstm_chunkwise.launches == before + 1
+    for ref_h, ref in (ml_ops.mlstm_chunkwise_plain(*args),
+                       ml_ops.mlstm_sequential(*args)):
+        for got, want in ((h, ref_h), (new["C"], ref["C"]),
+                          (new["n"], ref["n"]), (new["m"], ref["m"])):
+            assert torch.isfinite(got).all()
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_xlstm_on_card_matches_cpu():
+    """The reduced xLSTM: prefill through the mLSTM kernel and greedy
+    decode on the card against the plain versions on the CPU."""
+    _card()
+    cfg = get_config("xlstm-1.3b").reduced(d_model=128)
+    cpu = init_model(cfg, seed=3, device="cpu")
+    gpu = copy.deepcopy(cpu).cuda()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        launches.reset_launch_counts()
+        last, st = prefill_step(model, {"tokens": toks}, device=dev)
+        n_prefill = launches.launch_counts()["mlstm_scan"]
+        tok = last.argmax(-1).to(torch.int32)[:, None]
+        got = [tok]
+        for t in range(6):
+            tok, st = serve_step(model, st, tok, 96 + t, device=dev)
+            got.append(tok)
+        out.append((last.cpu(), torch.cat(got, 1).cpu(), n_prefill,
+                    launches.launch_counts()["mlstm_scan"] - n_prefill))
+    (lc, tc, pc, dc), (lg, tg, pg, dg) = out
+    assert (pc, dc) == (0, 0)
+    assert (pg, dg) == (cfg.layer_pattern.count("mlstm"), 0)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tg, tc)

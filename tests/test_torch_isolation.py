@@ -43,13 +43,17 @@ def test_every_module_imports_without_jax_or_repro():
         "    importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 20
+    for mod in ("configs.xlstm_13b", "launch.steps", "models.ssm",
+                "models.scan_utils", "kernels.mlstm_scan.ops"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -72,3 +76,27 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                    params=init_model(cfg, device="cpu"))])
     with pytest.raises(RuntimeError, match="CUDA"):
         TryageEngine(lib, init_router(rc, device="cpu"), rc)
+
+
+def test_xlstm_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models.model import init_decode_state, init_model
+    cfg = get_config("xlstm-1.3b").reduced(d_model=32)
+    model = init_model(cfg, device="cpu")
+    state = init_decode_state(cfg, 1, device="cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_decode_state(cfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prefill_step(model, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_step(model, state, tokens[:, :1], 4)
+    # asked for the CPU, they run there
+    last, state = prefill_step(model, {"tokens": tokens}, device="cpu")
+    tok, _ = serve_step(model, state, last.argmax(-1)[:, None], 4,
+                        device="cpu")
+    assert tok.shape == (1, 1)
