@@ -28,14 +28,19 @@ line; the line before the last is the card's name and power limit from
 failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or outside a checkout, it exits non-zero at once.
 
-TF32 is off throughout (it flips near-tie argmins).  Times: CUDA events
-over back-to-back calls after a warm-up, and the profiler's device time
-per kernel.  Bounds: the larger of the bytes each call must move over
-3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM data sheet).
+TF32 is off throughout for PyTorch's own products (it flips near-tie
+argmins); the attention and mLSTM kernels run theirs on the tensor
+cores in 3xTF32, which keeps f32 accuracy.  Times: CUDA events over
+back-to-back calls after a warm-up, and the profiler's device time per
+kernel.  Bounds: the larger of the bytes each call must move over 3.35
+TB/s and its f32 operations over 67 TFLOP/s (H100 SXM data sheet); for
+the tensor-core kernels also the larger of the bytes and three times the
+operations over the TF32 tensor-core rate, 495 TFLOP/s (``bound_tc_ms``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -50,6 +55,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_TC_FLOPS_PER_S = 495e12   # dense TF32 tensor cores; 3xTF32 takes 3 passes
 CHOICE_GAP = 1e-5          # a choice may differ only below this top-two gap
 ROUTER_TOL = 1e-5          # router heads: pred / sigma vs the plain version
 ATTN_TOL = 2e-5            # attention: online vs full softmax summation order
@@ -82,6 +88,8 @@ FLAG_TEXTS = ["", "[Flag: Prefer small]", "[Flag: Smallest model]",
               "[Flag: Small model] [Flag: Recent model]"]
 N_REQUESTS, N_UNIQUE, SEQ, MAX_BATCH = 256, 192, 128, 32
 
+# name: (source, the TPU kernel it replaces, the name its device
+# functions carry in ptxas, cuobjdump and the profiler)
 SOURCES = {
     "router_score": ("src/repro_torch/kernels/csrc/router_score.cu",
                      "src/repro/kernels/router_score/kernel.py:24",
@@ -94,9 +102,11 @@ SOURCES = {
                         "flash_attention_kernel"),
     "mlstm_scan": ("src/repro_torch/kernels/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan/kernel.py:36",
-                   "mlstm_scan_kernel"),
+                   "mlstm_scan"),
 }
 ROUTER_PATH = ("router_score", "router_cascade", "flash_attention")
+# kernels whose products run on the tensor cores (3xTF32)
+TENSOR_CORE = ("flash_attention", "mlstm_scan")
 
 
 def emit(phase: str, **fields) -> None:
@@ -108,8 +118,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -132,21 +143,55 @@ def device_phase(torch) -> dict:
     return info
 
 
+def sass_mma(build, lib) -> dict:
+    """Per device function of the built library: how many tensor-core
+    instructions (HMMA) its SASS holds, and which kinds, from
+    ``cuobjdump -sass``."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib.path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(line.split("Function :")[1].strip(),
+                                 {"hmma": 0, "kinds": []})
+        elif cur is not None and "HMMA" in line:
+            cur["hmma"] += 1
+            kind = line[line.index("HMMA"):].split()[0]
+            if kind not in cur["kinds"]:
+                cur["kinds"].append(kind)
+    return out
+
+
 def build_phase() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     lib = build.library()
     ptxas = build.ptxas_summary(lib.ptxas_log)
+    sass = sass_mma(build, lib)
+    kernels = {}
     for name, (_, _, entry) in SOURCES.items():
-        check(entry in ptxas, f"ptxas reported nothing for {entry}")
-        check(ptxas[entry].get("spill_stores", 0) == 0
-              and ptxas[entry].get("spill_loads", 0) == 0,
-              f"{entry} spills registers: {ptxas[entry]}")
+        # a kernel may be several device functions (template instances,
+        # or launches): every one must build without spilling
+        funcs = {fn: info for fn, info in ptxas.items() if entry in fn}
+        check(bool(funcs), f"ptxas reported nothing for {entry}")
+        for fn, info in funcs.items():
+            check(info.get("spill_stores", 0) == 0
+                  and info.get("spill_loads", 0) == 0,
+                  f"{fn} spills registers: {info}")
+            if name in TENSOR_CORE:
+                mma = sass.get(fn, {"hmma": 0, "kinds": []})
+                check(mma["hmma"] > 0
+                      and all("TF32" in k for k in mma["kinds"]),
+                      f"{fn}: no TF32 tensor-core instructions in its SASS "
+                      f"({mma})")
+                info = {**info, "sass_hmma": mma["hmma"],
+                        "sass_hmma_kinds": mma["kinds"]}
+            kernels.setdefault(name, {})[fn] = info
     emit("build", library=str(lib.path.relative_to(ROOT)),
          nvcc_seconds=lib.build_seconds,
-         load_seconds=time.perf_counter() - t0,
-         kernels={name: ptxas[entry]
-                  for name, (_, _, entry) in SOURCES.items()})
+         load_seconds=time.perf_counter() - t0, kernels=kernels)
 
 
 # -------------------------------------------------------------- phase 3
@@ -300,6 +345,26 @@ def make_requests(Request, parse_flags, mb, thr):
     return reqs
 
 
+@contextlib.contextmanager
+def attention_batches():
+    """Within the block, count the batch sizes the models pass to the
+    attention kernel's wrapper (the name ``models.attention`` calls),
+    in a dict batch size -> calls.  The wrapper itself and its launch
+    count are untouched."""
+    from repro_torch.models import attention
+    inner, hist = attention.flash_attention, {}
+
+    def counted(q, *args, **kwargs):
+        hist[q.shape[0]] = hist.get(q.shape[0], 0) + 1
+        return inner(q, *args, **kwargs)
+
+    attention.flash_attention = counted
+    try:
+        yield hist
+    finally:
+        attention.flash_attention = inner
+
+
 def main_path_phase(torch) -> dict:
     from repro_torch.core import objective
     from repro_torch.core.library import ModelLibrary, paper_library_specs
@@ -358,10 +423,11 @@ def main_path_phase(torch) -> dict:
     reqs = make_requests(Request, parse_flags, mb, thr)
     torch.cuda.reset_peak_memory_stats()
     launches.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = serve(eng, reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with attention_batches() as batch_hist:
+        t0 = time.perf_counter()
+        res = serve(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = launches.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -382,7 +448,8 @@ def main_path_phase(torch) -> dict:
     # one more run under the profiler: where the device time goes
     profile = device_profile(torch, lambda: serve(
         engine(lib, router, "cuda"),
-        make_requests(Request, parse_flags, mb, thr)))
+        make_requests(Request, parse_flags, mb, thr)),
+        match={"flash_attention": SOURCES["flash_attention"][2]})
     # busy share against the timed (unprofiled) run of the same work
     profile["busy_share"] = profile["device_busy_ms"] / (wall * 1e3)
 
@@ -411,6 +478,7 @@ def main_path_phase(torch) -> dict:
            "req_per_s": N_REQUESTS / wall, "setup_s": setup_s,
            "peak_memory_bytes": peak, "launches": counts,
            "threshold": thr, "cascade_rows": n_casc, "escalations": esc,
+           "attention_batch_hist": dict(sorted(batch_hist.items())),
            "depth_hist": {int(k): v for k, v in
                           sorted(eng.stats.cascade_depth_hist.items())},
            "router_time_s": eng.stats.router_time_s,
@@ -568,7 +636,8 @@ def xlstm_serve_phase(torch):
             torch, model, lambda: model_lib.decode_step(
                 model, {"tokens": tok}, st, XLSTM_S))
     prof_prefill = device_profile(
-        torch, lambda: prefill_step(model, {"tokens": prompts}))
+        torch, lambda: prefill_step(model, {"tokens": prompts}),
+        match={"mlstm_scan": SOURCES["mlstm_scan"][2]})
     prof_prefill["busy_share"] = prof_prefill["device_busy_ms"] / (
         prefill_s * 1e3)
     prof_decode = device_profile(
@@ -780,10 +849,12 @@ def xlstm_crosscheck_phase(torch, corpus) -> dict:
 
 # -------------------------------------------------------------- phase 5
 
-def device_profile(torch, fn, top=8) -> dict:
+def device_profile(torch, fn, top=8, match=None) -> dict:
     """Kernel time on the card for one call of ``fn`` under the
-    profiler, with the top kernels.  The profiled wall time includes the
-    profiler's own start-up and is reported only as such."""
+    profiler, with the top kernels, and for each ``match`` entry (name:
+    substring) the time of the kernels whose names hold the substring.
+    The profiled wall time includes the profiler's own start-up and is
+    reported only as such."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -796,10 +867,15 @@ def device_profile(torch, fn, top=8) -> dict:
          for e in prof.key_averages()
          if str(e.device_type).endswith("CUDA")
          and e.self_device_time_total > 0), key=lambda k: -k[1])
-    return {"profiled_wall_ms": wall_ms,
-            "device_busy_ms": sum(k[1] for k in kernels),
-            "top_kernels": [{"name": n[:80], "ms": t, "count": c}
-                            for n, t, c in kernels[:top]]}
+    busy = sum(k[1] for k in kernels)
+    out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+           "top_kernels": [{"name": n[:80], "ms": t, "count": c}
+                           for n, t, c in kernels[:top]]}
+    for name, sub in (match or {}).items():
+        ms = sum(t for n, t, _ in kernels if sub in n)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_share"] = ms / busy if busy else None
+    return out
 
 
 def events_ms(torch, fn, iters=200, warmup=20) -> float:
@@ -816,9 +892,9 @@ def events_ms(torch, fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(torch, fn, kernel: str, iters=50):
-    """Mean device time of CUDA kernel ``kernel`` over ``iters`` calls,
-    from the profiler's trace; None if the trace shows no device time."""
+def profiled_kernels(torch, fn, iters=50) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` runs, over
+    ``iters`` calls under the profiler."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -827,12 +903,23 @@ def profiled_ms(torch, fn, kernel: str, iters=50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    out = {}
     for evt in prof.key_averages():
-        if evt.key == kernel and evt.count:
-            total = getattr(evt, "device_time_total",
-                            getattr(evt, "cuda_time_total", 0.0))
-            return total / evt.count / 1e3 if total else None
-    return None
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        if evt.self_device_time_total:
+            out[evt.key] = (out.get(evt.key, 0.0)
+                            + evt.self_device_time_total / iters / 1e3)
+    return out
+
+
+def profiled_ms(torch, fn, kernel: str, iters=50):
+    """Device time per call of the CUDA kernels whose names hold
+    ``kernel`` (all of a wrapper's launches), from the profiler's trace;
+    None if the trace shows no device time for them."""
+    ms = sum(t for n, t in profiled_kernels(torch, fn, iters).items()
+             if kernel in n)
+    return ms or None
 
 
 def times_phase(torch, launches_per_run: dict, err: dict) -> list:
@@ -853,12 +940,12 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
         ("router_score", lambda: rs_ops.router_score_fused(*sa),
          lambda: rs_ops.router_score_plain(*sa), None,
          head_bytes + io_bytes, head_flops + 2 * B * n_c * M,
-         {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}),
+         {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}, None),
         ("router_cascade", lambda: rc_ops.router_score_cascade_fused(*ca),
          lambda: rc_ops.router_cascade_plain(*ca), None,
          2 * head_bytes + io_bytes + 4 * (B * M + B + M),
          2 * head_flops + 2 * B * n_c * M,
-         {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}),
+         {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}, None),
     ]
     B, S, H, dh = XLSTM_B, XLSTM_S, 4, 1024
     L = min(64, S)
@@ -870,9 +957,12 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
                       + 2 * B * H * dh + 2 * B * S * H + 2 * B * H),
                  # per row and chunk: q k^T and (W*S) v, q C and k^T v
                  B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh),
-                 {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}))
+                 {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}, None))
     extra = []
-    for i, (Bq, H, hd) in enumerate(((32, 4, 32), (32, 4, 40), (32, 8, 32))):
+    # the main path's shape first, then hd 40, 8 heads, and the batch
+    # sizes most of run()'s launches take (1 to 8)
+    for i, (Bq, H, hd) in enumerate(((32, 4, 32), (32, 4, 40), (32, 8, 32),
+                                     (1, 4, 32), (8, 4, 32))):
         g = torch.Generator(device="cuda").manual_seed(H * hd)
         q, k, v = (torch.randn(Bq, 128, H, hd, device="cuda", generator=g)
                    for _ in range(3))
@@ -885,11 +975,15 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
                 (lambda qh=qh, kh=kh, vh=vh:
                  F.scaled_dot_product_attention(qh, kh, vh)),
                 4 * 4 * Bq * 128 * H * hd, 4 * Bq * H * 128 * 128 * hd,
-                {"B": Bq, "H": H, "S": 128, "hd": hd, "causal": False})
+                {"B": Bq, "H": H, "S": 128, "hd": hd, "causal": False},
+                (lambda q=q, k=k, v=v, qh=qh, kh=kh, vh=vh: float((
+                    F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
+                    - fa_ops.attention_plain(q, k, v, causal=False))
+                    .abs().max())))
         (rows if i == 0 else extra).append(case)
     kernels, extra_out = [], []
-    for n, (name, kern, plain, libcall, nbytes, flops, shape) in enumerate(
-            rows + extra):
+    for n, (name, kern, plain, libcall, nbytes, flops, shape,
+            lib_err) in enumerate(rows + extra):
         bms, by = bound_ms(nbytes, flops)
         entry = {"name": name, "route": "cuda", "source": SOURCES[name][0],
                  "replaces": SOURCES[name][1],
@@ -902,11 +996,22 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
                  "library_ms": (events_ms(torch, libcall)
                                 if libcall is not None else None),
                  "shape": shape}
+        if name in TENSOR_CORE:
+            entry["bound_tc_ms"], entry["bound_tc_by"] = bound_ms(
+                nbytes, 3 * flops, TF32_TC_FLOPS_PER_S)
+        if libcall is not None:
+            # the library call's own kernels, device time and error
+            lib_k = profiled_kernels(torch, libcall)
+            entry["library_kernel"] = max(lib_k, key=lib_k.get)[:80]
+            entry["library_device_ms"] = sum(lib_k.values())
+            entry["library_max_abs_err"] = lib_err()
         (kernels if n < len(rows) else extra_out).append(entry)
     emit("times", kernels=kernels, extra_shapes=extra_out,
          method="ms/plain_ms/library_ms: CUDA events over 200 back-to-back "
-                "calls after 20 warm-up calls; device_ms: profiler device "
-                "time of the kernel alone")
+                "calls after 20 warm-up calls; device_ms/library_device_ms: "
+                "profiler device time of the call's kernels alone; "
+                "library_max_abs_err: the library call against the plain "
+                "version")
     return kernels
 
 

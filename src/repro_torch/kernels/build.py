@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
            "mlstm_scan.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -45,8 +45,13 @@ SIGNATURES = {
     "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 6 + [_P],
     # q k v | o | B S T H KV hd causal window | softcap scale | stream
     "tryage_flash_attention": [_P] * 3 + [_P] + [_I] * 8 + [_F] * 2 + [_P],
-    # q k v i f C0 n0 m0 | h C1 n1 m1 | B S H dh chunk | scale | stream
-    "tryage_mlstm_scan": [_P] * 8 + [_P] * 4 + [_I] * 5 + [_F] + [_P],
+    # q k v i f C0 n0 m0 | h C1 n1 m1 work | B S H dh chunk | scale | stream
+    "tryage_mlstm_scan": [_P] * 8 + [_P] * 5 + [_I] * 5 + [_F] + [_P],
+}
+# C functions that return a size, not a cudaError_t
+SIZES = {
+    # B S H chunk -> floats of workspace tryage_mlstm_scan needs
+    "tryage_mlstm_scan_workspace": [_I] * 4,
 }
 
 
@@ -63,6 +68,10 @@ class KernelLibrary:
         if err:
             raise RuntimeError(f"{fn}: CUDA error {err} at launch")
 
+    def size(self, fn: str, *args) -> int:
+        """The size C function ``fn`` returns (see ``SIZES``)."""
+        return int(getattr(self.cdll, fn)(*args))
+
 
 _lock = threading.Lock()
 _loaded: KernelLibrary | None = None
@@ -75,6 +84,24 @@ def library() -> KernelLibrary:
         if _loaded is None:
             _loaded = _load()
         return _loaded
+
+
+def launch(fn: str, device, *args) -> None:
+    """Launch through C entry point ``fn`` on CUDA ``device``: ``args``
+    and then PyTorch's current stream there, with ``device`` current.
+    The common case (``device`` already current) skips the device
+    switch and reads the raw stream pointer without building a
+    ``torch.cuda.Stream``; each costs microseconds of host time, which
+    a small kernel's call cannot spare."""
+    import torch
+    lib = library()
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        lib.call(fn, *args, torch._C._cuda_getCurrentRawStream(current))
+        return
+    with torch.cuda.device(index):
+        lib.call(fn, *args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def nvcc_path() -> str:
@@ -111,6 +138,9 @@ def _load() -> KernelLibrary:
     for fn, argtypes in SIGNATURES.items():
         getattr(cdll, fn).argtypes = argtypes
         getattr(cdll, fn).restype = ctypes.c_int
+    for fn, argtypes in SIZES.items():
+        getattr(cdll, fn).argtypes = argtypes
+        getattr(cdll, fn).restype = ctypes.c_longlong
     return KernelLibrary(cdll, so, seconds,
                          log.read_text() if log.exists() else "")
 

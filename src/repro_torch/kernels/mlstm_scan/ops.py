@@ -7,7 +7,8 @@ f32 (q not yet scaled), input and forget gate pre-activations i/f
 "m": (B, H)}; it returns (h (B, S, H, dh), new state).  On CUDA tensors
 it launches ``csrc/mlstm_scan.cu``, which replaces the Pallas
 ``_mlstm_kernel`` of ``src/repro/kernels/mlstm_scan/kernel.py`` (see the
-source for the design and what bounds it); on CPU tensors it runs
+source for the design and what bounds it; it takes head dims that are
+multiples of 8 up to 1024); on CPU tensors it runs
 ``mlstm_chunkwise_plain``.
 
 Beside it, the plain versions:
@@ -35,6 +36,7 @@ from repro_torch.kernels import build
 from repro_torch.models.scan_utils import pick_chunk
 
 MAX_CHUNK = 64        # the kernel's in-chunk tile is 64 x 64
+MAX_HEAD_DIM = 1024   # a block's 32 columns of C fill its shared memory
 
 
 def log_sigmoid(x):
@@ -127,6 +129,12 @@ def _check(q, k, v, i_pre, f_pre, state):
         raise ValueError("mlstm_chunkwise: empty sequence")
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (a view into a larger tensor)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
     """The mLSTM over a sequence from ``state``: the kernel on CUDA
     tensors, ``mlstm_chunkwise_plain`` on CPU ones.  Returns
@@ -137,16 +145,23 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise: no kernel for {q.device}")
     B, S, H, dh = q.shape
-    args = [t.contiguous() for t in (q, k, v, i_pre, f_pre, state["C"],
-                                     state["n"], state["m"])]
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"mlstm_chunkwise: head_dim {dh} must be a multiple "
+                         f"of 8 and at most {MAX_HEAD_DIM}")
+    L = pick_chunk(S, MAX_CHUNK)
+    # the kernel stages rows with 16-byte copies: 16-byte aligned inputs
+    args = [_aligned(t.contiguous()) for t in (q, k, v, i_pre, f_pre,
+                                               state["C"], state["n"],
+                                               state["m"])]
     h = torch.empty_like(args[0])
     C1, n1, m1 = (torch.empty_like(t) for t in args[5:])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        build.library().call(
-            "tryage_mlstm_scan", *(t.data_ptr() for t in args),
-            h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            B, S, H, dh, pick_chunk(S, MAX_CHUNK), 1.0 / math.sqrt(dh), stream)
+    lib = build.library()
+    work = torch.empty(lib.size("tryage_mlstm_scan_workspace", B, S, H, L),
+                       dtype=torch.float32, device=q.device)
+    build.launch(
+        "tryage_mlstm_scan", q.device, *(t.data_ptr() for t in args),
+        h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
+        work.data_ptr(), B, S, H, dh, L, 1.0 / math.sqrt(dh))
     mlstm_chunkwise.launches += 1
     return h, {"C": C1, "n": n1, "m": m1}
 

@@ -84,15 +84,13 @@ def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
     sigma = torch.empty(B, M, dtype=torch.float32, device=dev)
     choice = torch.empty(B, dtype=torch.int32, device=dev)
     esc = torch.empty(B, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        build.library().call(
-            "tryage_router_cascade", emb.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), uw1.data_ptr(),
-            ub1.data_ptr(), uw2.data_ptr(), ub2.data_ptr(), cvals.data_ptr(),
-            lam.data_ptr(), ladder_pos.data_ptr(), pred.data_ptr(),
-            sigma.data_ptr(), choice.data_ptr(), esc.data_ptr(), B, d, hh, M,
-            cvals.shape[0], plan["block_b"], stream)
+    build.launch(
+        "tryage_router_cascade", dev, emb.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), uw1.data_ptr(),
+        ub1.data_ptr(), uw2.data_ptr(), ub2.data_ptr(), cvals.data_ptr(),
+        lam.data_ptr(), ladder_pos.data_ptr(), pred.data_ptr(),
+        sigma.data_ptr(), choice.data_ptr(), esc.data_ptr(), B, d, hh, M,
+        cvals.shape[0], plan["block_b"])
     router_score_cascade_fused.launches += 1
     return pred, sigma, choice, esc
 

@@ -96,13 +96,11 @@ def router_score_fused(emb, w1, b1, w2, b2, cvals, lam):
     plan = decision_plan(B)
     pred = torch.empty(B, M, dtype=torch.float32, device=emb.device)
     choice = torch.empty(B, dtype=torch.int32, device=emb.device)
-    stream = torch.cuda.current_stream(emb.device).cuda_stream
-    with torch.cuda.device(emb.device):
-        build.library().call(
-            "tryage_router_score", emb.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), cvals.data_ptr(),
-            lam.data_ptr(), pred.data_ptr(), choice.data_ptr(), B, d, hh, M,
-            cvals.shape[0], plan["block_b"], stream)
+    build.launch(
+        "tryage_router_score", emb.device, emb.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), cvals.data_ptr(),
+        lam.data_ptr(), pred.data_ptr(), choice.data_ptr(), B, d, hh, M,
+        cvals.shape[0], plan["block_b"])
     router_score_fused.launches += 1
     return pred, choice
 

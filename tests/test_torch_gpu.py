@@ -10,9 +10,11 @@ TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``): it flips near-tie argmins.
 Tolerances: router heads rtol=atol=1e-5 and exact choices; attention
 rtol=1e-5, atol=2e-5 (the kernel's online softmax sums in another
-order than the plain full softmax); mLSTM scan: each of h, C1, n1, m1
-within 1e-4 of the reference's largest magnitude (f32 sums over up to
-1024 terms in another order, then h divides by a running denominator);
+order than the plain full softmax, and its products run in 3xTF32,
+which keeps f32 accuracy: tests/test_torch_tf32.py); mLSTM scan, also
+3xTF32: each of h, C1, n1, m1 within 1e-4 of the reference's largest
+magnitude (f32 sums over up to 1024 terms in another order, then h
+divides by a running denominator);
 the xLSTM on the card against the CPU: logits atol=rtol=1e-4 and the
 same greedy tokens.
 """
@@ -66,6 +68,38 @@ def test_flash_attention_kernel_matches_plain(S, H, KV, hd, causal, window,
     g = torch.Generator(device="cuda").manual_seed(S * hd)
     q = torch.randn(3, S, H, hd, device="cuda", generator=g)
     k, v = (torch.randn(3, S, KV, hd, device="cuda", generator=g)
+            for _ in range(2))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+
+
+ATTN_EDGES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
+    (1, 128, 128, 1, 1, 32, False, 0, 0.0),    # B*H = 1: one block
+    (1, 128, 128, 4, 4, 32, False, 0, 0.0),    # batch 1 of the main path
+    (2, 1, 1, 4, 4, 32, False, 0, 0.0),        # S = T = 1
+    (2, 1, 70, 4, 2, 40, False, 0, 0.0),       # one query, ragged keys
+    (2, 50, 50, 4, 4, 40, True, 0, 0.0),       # S not a multiple of 16
+    (2, 40, 200, 4, 1, 40, False, 0, 0.0),     # T > S, GQA with KV = 1
+    (2, 130, 64, 2, 2, 8, False, 0, 5.0),      # hd 8, T < S
+    (1, 33, 150, 4, 4, 128, True, 32, 0.0),    # hd 128, T != S
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window,softcap", ATTN_EDGES)
+def test_flash_attention_kernel_edges(B, S, T, H, KV, hd, causal, window,
+                                      softcap):
+    """The edges of the kernel's tiling: 16-row warp tiles, 1-4 warps a
+    block, 64-key tiles, one template instance per hd / 8."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(B * S + T * hd)
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g)
+    k, v = (torch.randn(B, T, KV, hd, device="cuda", generator=g)
             for _ in range(2))
     before = fa_ops.flash_attention.launches
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
@@ -176,6 +210,11 @@ MLSTM_CASES = [  # (B, S, H, dh, carried state)
     (1, 96, 1, 1024, True),
     (2, 512, 1, 1024, False),
     (1, 97, 1, 40, True),      # prime S: chunks of 1; ragged column tile
+    (1, 128, 2, 32, True),     # one 32-column block
+    (2, 64, 1, 40, True),      # one chunk; ragged 32-column block
+    (1, 64, 3, 64, False),     # one chunk
+    (1, 192, 1, 1024, True),   # B*H = 1 at the serving width
+    (2, 97, 2, 64, True),      # prime S: chunks of 1
 ]
 
 
