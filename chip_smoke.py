@@ -22,9 +22,12 @@ Then it drives the port's two paths, each with the launch counts set to
   decode against a longer prefill for the whole config in f32.
 
 It checks that every kernel of each path was launched in that path's
-run, and times each kernel beside its bound.  Each phase prints one JSON
-line; the line before the last is the card's name and power limit from
-``nvidia-smi``, the last is ``{"ok": true, "device": {...}}``.  Any
+run, and times each kernel beside its bound; the router heads also at
+every bucket size the path launches them at, beside the launch floor
+(the device time of an empty kernel, ``csrc/launch_floor.cu``).  Each
+phase prints one JSON line; the line before the last is the card's
+name and power limit from ``nvidia-smi``, the last is ``{"ok": true,
+"device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or outside a checkout, it exits non-zero at once.
 
@@ -346,23 +349,22 @@ def make_requests(Request, parse_flags, mb, thr):
 
 
 @contextlib.contextmanager
-def attention_batches():
-    """Within the block, count the batch sizes the models pass to the
-    attention kernel's wrapper (the name ``models.attention`` calls),
-    in a dict batch size -> calls.  The wrapper itself and its launch
-    count are untouched."""
-    from repro_torch.models import attention
-    inner, hist = attention.flash_attention, {}
+def batch_sizes(module, fn_name: str):
+    """Within the block, count the batch sizes (the first argument's
+    first dimension) passed to ``module.fn_name``, the name its callers
+    reach, in a dict batch size -> calls.  The wrapper itself and its
+    launch count are untouched."""
+    inner, hist = getattr(module, fn_name), {}
 
-    def counted(q, *args, **kwargs):
-        hist[q.shape[0]] = hist.get(q.shape[0], 0) + 1
-        return inner(q, *args, **kwargs)
+    def counted(x, *args, **kwargs):
+        hist[x.shape[0]] = hist.get(x.shape[0], 0) + 1
+        return inner(x, *args, **kwargs)
 
-    attention.flash_attention = counted
+    setattr(module, fn_name, counted)
     try:
         yield hist
     finally:
-        attention.flash_attention = inner
+        setattr(module, fn_name, inner)
 
 
 def main_path_phase(torch) -> dict:
@@ -373,6 +375,9 @@ def main_path_phase(torch) -> dict:
     from repro_torch.data.batching import mlm_batch
     from repro_torch.data.corpus import DOMAINS, DomainCorpus
     from repro_torch.kernels import launches
+    from repro_torch.kernels.router_cascade import ops as rc_ops
+    from repro_torch.kernels.router_score import ops as rs_ops
+    from repro_torch.models import attention
     from repro_torch.models.model import count_params, init_model
     from repro_torch.serving import (Request, TryageEngine, lambda_matrix,
                                      parse_flags)
@@ -423,7 +428,9 @@ def main_path_phase(torch) -> dict:
     reqs = make_requests(Request, parse_flags, mb, thr)
     torch.cuda.reset_peak_memory_stats()
     launches.reset_launch_counts()
-    with attention_batches() as batch_hist:
+    with batch_sizes(attention, "flash_attention") as batch_hist, \
+            batch_sizes(rs_ops, "router_route") as score_hist, \
+            batch_sizes(rc_ops, "router_route_cascade") as cascade_hist:
         t0 = time.perf_counter()
         res = serve(eng, reqs)
         torch.cuda.synchronize()
@@ -449,7 +456,7 @@ def main_path_phase(torch) -> dict:
     profile = device_profile(torch, lambda: serve(
         engine(lib, router, "cuda"),
         make_requests(Request, parse_flags, mb, thr)),
-        match={"flash_attention": SOURCES["flash_attention"][2]})
+        match={name: SOURCES[name][2] for name in ROUTER_PATH})
     # busy share against the timed (unprofiled) run of the same work
     profile["busy_share"] = profile["device_busy_ms"] / (wall * 1e3)
 
@@ -479,6 +486,10 @@ def main_path_phase(torch) -> dict:
            "peak_memory_bytes": peak, "launches": counts,
            "threshold": thr, "cascade_rows": n_casc, "escalations": esc,
            "attention_batch_hist": dict(sorted(batch_hist.items())),
+           "router_batch_hist": {
+               "router_score": dict(sorted(score_hist.items())),
+               "router_cascade": dict(sorted(cascade_hist.items()))},
+           "router_tiles": eng.stats.router_tiles,
            "depth_hist": {int(k): v for k, v in
                           sorted(eng.stats.cascade_depth_hist.items())},
            "router_time_s": eng.stats.router_time_s,
@@ -931,21 +942,16 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
 
     B, d, hh, M, n_c = 32, 128, 128, 11, 2
     t = head_inputs(torch, B, M, d, hh, n_c, seed=1)
-    head_bytes = 4 * (d * hh + hh + hh * M + M)
-    io_bytes = 4 * (B * d + n_c * M + B * n_c + B * M + B)
-    head_flops = 2 * B * d * hh + 2 * B * hh * M
     sa = [t[k] for k in SCORE_ARGS]
     ca = [t[k] for k in CASCADE_ARGS]
+    shape = {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}
     rows = [
         ("router_score", lambda: rs_ops.router_score_fused(*sa),
          lambda: rs_ops.router_score_plain(*sa), None,
-         head_bytes + io_bytes, head_flops + 2 * B * n_c * M,
-         {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}, None),
+         *head_cost(B, d, hh, M, n_c, cascade=False), shape, None),
         ("router_cascade", lambda: rc_ops.router_score_cascade_fused(*ca),
          lambda: rc_ops.router_cascade_plain(*ca), None,
-         2 * head_bytes + io_bytes + 4 * (B * M + B + M),
-         2 * head_flops + 2 * B * n_c * M,
-         {"B": B, "d": d, "hh": hh, "M": M, "n_c": n_c}, None),
+         *head_cost(B, d, hh, M, n_c, cascade=True), shape, None),
     ]
     B, S, H, dh = XLSTM_B, XLSTM_S, 4, 1024
     L = min(64, S)
@@ -1007,12 +1013,75 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
             entry["library_max_abs_err"] = lib_err()
         (kernels if n < len(rows) else extra_out).append(entry)
     emit("times", kernels=kernels, extra_shapes=extra_out,
+         launch_floor=launch_floor(torch, rs_ops.decision_plan(32, d, hh)),
+         router_buckets=router_buckets(
+             torch, rs_ops, rc_ops, d, hh, M, n_c),
          method="ms/plain_ms/library_ms: CUDA events over 200 back-to-back "
                 "calls after 20 warm-up calls; device_ms/library_device_ms: "
                 "profiler device time of the call's kernels alone; "
                 "library_max_abs_err: the library call against the plain "
-                "version")
+                "version; launch_floor: an empty kernel through the "
+                "wrappers' launch path, at one warp and at the "
+                "router_score grid and block for B=32")
     return kernels
+
+
+def head_cost(B, d, hh, M, n_c, cascade) -> tuple[int, int]:
+    """(bytes, f32 operations) of one router-head call: weights, rows
+    and outputs moved once; both layers' products and the constraint
+    add."""
+    heads = 2 if cascade else 1
+    head_bytes = 4 * (d * hh + hh + hh * M + M)
+    io_bytes = 4 * (B * d + n_c * M + B * n_c + B * M + B)
+    if cascade:     # sigma, esc, ladder_pos
+        io_bytes += 4 * (B * M + B + M)
+    head_flops = 2 * B * d * hh + 2 * B * hh * M
+    return heads * head_bytes + io_bytes, (heads * head_flops
+                                           + 2 * B * n_c * M)
+
+
+def launch_floor(torch, plan: dict) -> dict:
+    """Events and device time of the empty kernel ``launch_floor_kernel``
+    (``csrc/launch_floor.cu``) launched through ``build.launch``: one
+    block of one warp, and the grid and block of ``plan`` (a router
+    kernel's launch at B=32)."""
+    from repro_torch.kernels import build
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"source": "src/repro_torch/kernels/csrc/launch_floor.cu"}
+    for key, grid, threads in (("one_warp", 1, 32),
+                               ("b32", plan["grid"], plan["threads"])):
+        fn = (lambda grid=grid, threads=threads:
+              build.launch("tryage_launch_floor", dev, grid, threads))
+        out[key] = {"grid": grid, "threads": threads,
+                    "ms": events_ms(torch, fn),
+                    "device_ms": profiled_ms(torch, fn,
+                                             "launch_floor_kernel")}
+    return out
+
+
+def router_buckets(torch, rs_ops, rc_ops, d, hh, M, n_c) -> list:
+    """Both router heads at every bucket size ``run()`` launches them
+    at: events and device time beside the bound and the launch plan."""
+    out = []
+    for B in (1, 2, 4, 8, 16, 32):
+        t = head_inputs(torch, B, M, d, hh, n_c, seed=B)
+        row = {"B": B}
+        for name, fn, args, cascade in (
+                ("router_score", rs_ops.router_score_fused, SCORE_ARGS,
+                 False),
+                ("router_cascade", rc_ops.router_score_cascade_fused,
+                 CASCADE_ARGS, True)):
+            call = (lambda fn=fn, a=[t[k] for k in args]: fn(*a))
+            bms, _ = bound_ms(*head_cost(B, d, hh, M, n_c, cascade))
+            plan = (rc_ops.decision_plan(B, d, hh) if cascade
+                    else rs_ops.decision_plan(B, d, hh))
+            row[name] = {"ms": events_ms(torch, call),
+                         "device_ms": profiled_ms(torch, call,
+                                                  SOURCES[name][2]),
+                         "bound_ms": bms, "threads": plan["threads"],
+                         "k_groups": plan["k_groups"]}
+        out.append(row)
+    return out
 
 
 def main() -> int:

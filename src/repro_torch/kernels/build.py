@@ -27,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
-           "mlstm_scan.cu")
-HEADERS = ("common.cuh", "mma_tf32.cuh")
+           "mlstm_scan.cu", "launch_floor.cu")
+HEADERS = ("common.cuh", "mma_tf32.cuh", "router_head.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -38,15 +38,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: pointers and the stream as void*, sizes as int;
 # each returns the cudaError_t of its launch
 SIGNATURES = {
-    # emb w1 b1 w2 b2 cvals lam | pred choice | B d hh M n_c block_b | stream
-    "tryage_router_score": [_P] * 7 + [_P] * 2 + [_I] * 6 + [_P],
+    # emb w1 b1 w2 b2 cvals lam | pred choice
+    # | B d hh M n_c threads k_groups | stream
+    "tryage_router_score": [_P] * 7 + [_P] * 2 + [_I] * 7 + [_P],
     # emb w1 b1 w2 b2 uw1 ub1 uw2 ub2 cvals lam ladder_pos
-    # | pred sigma choice esc | B d hh M n_c block_b | stream
-    "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 6 + [_P],
+    # | pred sigma choice esc | B d hh M n_c threads k_groups | stream
+    "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 7 + [_P],
     # q k v | o | B S T H KV hd causal window | softcap scale | stream
     "tryage_flash_attention": [_P] * 3 + [_P] + [_I] * 8 + [_F] * 2 + [_P],
     # q k v i f C0 n0 m0 | h C1 n1 m1 work | B S H dh chunk | scale | stream
     "tryage_mlstm_scan": [_P] * 8 + [_P] * 5 + [_I] * 5 + [_F] + [_P],
+    # grid threads | stream: an empty kernel, the launch floor
+    "tryage_launch_floor": [_I] * 2 + [_P],
 }
 # C functions that return a size, not a cudaError_t
 SIZES = {

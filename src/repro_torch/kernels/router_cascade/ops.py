@@ -12,9 +12,12 @@ target — the constrained argmin over the experts strictly above the
 pick on the escalation ladder, ties to the earliest rung, echoing the
 pick at the top rung (``core.objective.cascade_choice``'s step).
 
-Bound on the H100: bytes (~160 KB for both heads at B=32, about 49 ns);
-as for ``router_score`` the intermediates stay in shared memory, and
-both heads share one staging of the embedding rows.
+Bound on the H100: bytes (~160 KB for both heads at B=32, about 49 ns),
+far below the launch floor, as for ``router_score``, whose kernel body
+this one shares: a cluster of blocks per row, each block with both
+heads' slices of hidden units side by side, so the second head widens
+each block's work instead of adding a pass; the escalation target is
+one more shuffle reduction after the argmin.
 """
 
 from __future__ import annotations
@@ -23,15 +26,15 @@ import torch
 
 from repro_torch.core.router import UNC_FLOOR
 from repro_torch.kernels import build
-from repro_torch.kernels.router_score.ops import (ROW_TILE, as_f32,
-                                                   check_head, head_plain,
-                                                   launch_plan)
+from repro_torch.kernels.router_score.ops import as_f32, check_head
+from repro_torch.kernels.router_score.ops import decision_plan as score_plan
+from repro_torch.kernels.router_score.ops import head_plain
 
 
-def decision_plan(B: int) -> dict:
-    """The launch geometry a ``router_route_cascade`` call with this
-    batch uses."""
-    return launch_plan(B, ROW_TILE)
+def decision_plan(B: int, d: int, hh: int) -> dict:
+    """The launch geometry of a ``router_route_cascade`` call: the
+    router kernels' plan with both heads' hidden units in each block."""
+    return score_plan(B, d, hh, heads=2)
 
 
 def router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
@@ -78,7 +81,7 @@ def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
                                     cvals, lam, ladder_pos)
     B, d = emb.shape
     hh = w2.shape[0]
-    plan = decision_plan(B)
+    plan = decision_plan(B, d, hh)
     dev = emb.device
     pred = torch.empty(B, M, dtype=torch.float32, device=dev)
     sigma = torch.empty(B, M, dtype=torch.float32, device=dev)
@@ -90,7 +93,7 @@ def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
         ub1.data_ptr(), uw2.data_ptr(), ub2.data_ptr(), cvals.data_ptr(),
         lam.data_ptr(), ladder_pos.data_ptr(), pred.data_ptr(),
         sigma.data_ptr(), choice.data_ptr(), esc.data_ptr(), B, d, hh, M,
-        cvals.shape[0], plan["block_b"])
+        cvals.shape[0], plan["threads"], plan["k_groups"])
     router_score_cascade_fused.launches += 1
     return pred, sigma, choice, esc
 

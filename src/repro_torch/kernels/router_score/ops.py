@@ -10,12 +10,17 @@ design and what bounds it)::
     choice = argmin(pred + lam @ cvals)                      (B,) int32
 
 with ties going to the first index.  On a CPU tensor it runs
-``router_score_plain``.  Rows are independent: the kernel guards the
-ragged last tile instead of padding it.
+``router_score_plain``.  Rows are independent: one cluster of blocks
+per row.
 
 Bound on the H100: bytes (~90 KB of weights and rows at B=32, about
-27 ns at 3.35 TB/s); the design keeps every intermediate in shared
-memory, so only inputs and outputs touch device memory.
+27 ns at 3.35 TB/s), far below the launch floor, the device time of an
+empty kernel (``csrc/launch_floor.cu``; ``chip_smoke.py`` times both).
+What the design has to beat is the weights' trip from L2, which one SM
+makes at a low rate: each row's hidden units are split over a cluster
+of 8 blocks on 8 SMs, each reading an eighth of w1, whose shares of the
+second layer meet in the first block's shared memory (distributed
+shared memory); every intermediate stays on chip.
 """
 
 from __future__ import annotations
@@ -26,21 +31,27 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-ROW_TILE = 8   # rows per thread block
+CLUSTER = 8     # blocks a row takes (kCluster in csrc/router_head.cuh)
+THREADS = 256   # most threads a block takes (kRouterMaxThreads there)
 
 
-def launch_plan(B: int, block_b: int) -> dict:
-    """Effective launch geometry of a batch-tiled routing kernel: the
-    tile clamped to the batch, the batch rounded up to whole tiles, and
-    the grid.  The wrappers launch exactly this geometry."""
-    eff = max(1, min(int(block_b), int(B)))
-    padded = B + (-B) % eff
-    return {"block_b": eff, "padded_batch": padded, "grid": padded // eff}
-
-
-def decision_plan(B: int) -> dict:
-    """The launch geometry a ``router_route`` call with this batch uses."""
-    return launch_plan(B, ROW_TILE)
+def decision_plan(B: int, d: int, hh: int, heads: int = 1) -> dict:
+    """The launch geometry of a router kernel over ``B`` rows of width
+    ``d`` with ``heads`` hidden layers of ``hh`` units (2 for the
+    cascade): a cluster of ``CLUSTER`` blocks per row, each block a
+    slice of ``units_per_block`` hidden units of every head, its threads
+    owning (k-group, hidden unit) pairs, with as many k-groups (a power
+    of two, at most ``d``) as fit ``THREADS``.  The wrappers launch
+    exactly this geometry."""
+    per_block = -(-hh // CLUSTER)
+    units = heads * per_block
+    groups = 1
+    while 2 * groups * units <= THREADS and 2 * groups <= d:
+        groups *= 2
+    threads = min(THREADS, -(-groups * units // 32) * 32)
+    return {"grid": CLUSTER * B, "cluster": CLUSTER,
+            "units_per_block": per_block, "threads": threads,
+            "k_groups": groups}
 
 
 def softplus(x):
@@ -93,14 +104,14 @@ def router_score_fused(emb, w1, b1, w2, b2, cvals, lam):
         return router_score_plain(emb, w1, b1, w2, b2, cvals, lam)
     B, d = emb.shape
     hh, M = w2.shape
-    plan = decision_plan(B)
+    plan = decision_plan(B, d, hh)
     pred = torch.empty(B, M, dtype=torch.float32, device=emb.device)
     choice = torch.empty(B, dtype=torch.int32, device=emb.device)
     build.launch(
         "tryage_router_score", emb.device, emb.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), cvals.data_ptr(),
         lam.data_ptr(), pred.data_ptr(), choice.data_ptr(), B, d, hh, M,
-        cvals.shape[0], plan["block_b"])
+        cvals.shape[0], plan["threads"], plan["k_groups"])
     router_score_fused.launches += 1
     return pred, choice
 

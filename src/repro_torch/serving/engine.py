@@ -88,7 +88,8 @@ class EngineStats:
     tier_latencies: dict = dataclasses.field(
         default_factory=lambda: defaultdict(
             lambda: deque(maxlen=65536)))
-    # launch geometry of the decision kernel per padded batch size
+    # launch geometry of each decision kernel per padded batch size:
+    # {kernel: {Bp: plan}}
     router_tiles: dict = dataclasses.field(default_factory=dict)
     feedback_events: int = 0
     feedback_dropped: int = 0
@@ -219,8 +220,9 @@ class TryageEngine:
         emb = router_embed(router, self.rc, {"tokens": toks})
         pred, choice = rs_ops.router_route(emb, router.head, self._cmat_dev,
                                            lam)
-        if Bp not in self.stats.router_tiles:
-            self.stats.router_tiles[Bp] = rs_ops.decision_plan(Bp)
+        tiles = self.stats.router_tiles.setdefault("router_score", {})
+        if Bp not in tiles:
+            tiles[Bp] = rs_ops.decision_plan(Bp, *router.head["w1"].shape)
         pred = pred.cpu().numpy()[:B]
         choice = choice.cpu().numpy()[:B]
         self.stats.router_time_s += self._now() - t0
@@ -248,8 +250,9 @@ class TryageEngine:
         pred, sigma, choice, esc = rc_ops.router_route_cascade(
             emb, router.head, router.unc, self._cmat_dev, lam,
             self._ladder_dev)
-        if Bp not in self.stats.router_tiles:
-            self.stats.router_tiles[Bp] = rc_ops.decision_plan(Bp)
+        tiles = self.stats.router_tiles.setdefault("router_cascade", {})
+        if Bp not in tiles:
+            tiles[Bp] = rc_ops.decision_plan(Bp, *router.head["w1"].shape)
         pred, sigma, choice, esc = (t.cpu().numpy()[:B]
                                     for t in (pred, sigma, choice, esc))
         self.stats.router_time_s += self._now() - t0

@@ -111,14 +111,13 @@ def test_flash_attention_kernel_edges(B, S, T, H, KV, hd, causal, window,
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
 
 
-def _head_case(B, M, tied, seed):
+def _head_case(B, M, tied, seed, d=128, hh=128, n_c=2):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
-    d = hh = 128
     c = {"emb": f(B, d), "w1": f(d, hh) / 11, "b1": f(hh) / 5,
          "w2": f(hh, M) / 11, "b2": f(M) / 5, "uw1": f(d, hh) / 11,
          "ub1": f(hh) / 5, "uw2": f(hh, M) / 11, "ub2": f(M) / 5,
-         "cvals": np.abs(f(2, M)), "lam": np.abs(f(B, 2))}
+         "cvals": np.abs(f(n_c, M)), "lam": np.abs(f(B, n_c))}
     if tied:
         c["w2"][:] = c["w2"][:, :1]
         c["b2"][:] = 0.3
@@ -126,27 +125,72 @@ def _head_case(B, M, tied, seed):
     return {k: torch.from_numpy(v).cuda() for k, v in c.items()}
 
 
-@pytest.mark.parametrize("B", [1, 3, 32, 37])
-@pytest.mark.parametrize("tied", [False, True], ids=["random", "tied"])
-def test_router_kernels_match_plain(B, tied):
-    _card()
-    M = 11
-    t = _head_case(B, M, tied, seed=B)
-    ladder = torch.from_numpy(
-        np.random.default_rng(1).permutation(M).astype(np.int32)).cuda()
+def _router_both(t, ladder, plain=False):
+    """Both router heads on ``t``: kernels, or their plain versions."""
     s_args = [t[k] for k in ("emb", "w1", "b1", "w2", "b2", "cvals", "lam")]
     c_args = [t[k] for k in ("emb", "w1", "b1", "w2", "b2", "uw1", "ub1",
                              "uw2", "ub2", "cvals", "lam")] + [ladder]
-    got = rs_ops.router_score_fused(*s_args) + \
-        rc_ops.router_score_cascade_fused(*c_args)
+    if plain:
+        return (rs_ops.router_score_plain(*s_args)
+                + rc_ops.router_cascade_plain(*c_args))
+    before = (rs_ops.router_score_fused.launches,
+              rc_ops.router_score_cascade_fused.launches)
+    out = (rs_ops.router_score_fused(*s_args)
+           + rc_ops.router_score_cascade_fused(*c_args))
     torch.cuda.synchronize()
-    want = rs_ops.router_score_plain(*s_args) + \
-        rc_ops.router_cascade_plain(*c_args)
+    assert (rs_ops.router_score_fused.launches,
+            rc_ops.router_score_cascade_fused.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    return out
+
+
+def _ladder(M):
+    return torch.from_numpy(
+        np.random.default_rng(1).permutation(M).astype(np.int32)).cuda()
+
+
+PATH_WIDTH = (128, 128, 11, 2)    # (d, hh, M, n_c) of the main path
+ROUTER_CASES = (                  # (B, d, hh, M, n_c)
+    [(B,) + PATH_WIDTH for B in (1, 2, 4, 8, 16, 32, 64, 3, 37)]
+    + [(37, 128, 128, 1, 2),      # one expert
+       (37, 128, 128, 33, 2),     # more experts than lanes of a warp
+       (37, 128, 96, 11, 2),      # hh not a power of two
+       (37, 80, 128, 11, 2),      # d not a power of two
+       (37, 128, 128, 11, 4)])    # four constraints
+
+
+@pytest.mark.parametrize("B,d,hh,M,n_c", ROUTER_CASES)
+@pytest.mark.parametrize("tied", [False, True], ids=["random", "tied"])
+def test_router_kernels_match_plain(B, d, hh, M, n_c, tied):
+    """Every bucket size of the path and the edges of the kernels'
+    geometry; ``tied`` makes every expert tie (the first index and the
+    earliest rung must win, exactly as in the plain versions)."""
+    _card()
+    t = _head_case(B, M, tied, seed=B + M, d=d, hh=hh, n_c=n_c)
+    got = _router_both(t, _ladder(M))
+    want = _router_both(t, _ladder(M), plain=True)
     for g, w in zip(got, want):
         if g.dtype == torch.int32:
             assert torch.equal(g, w)
         else:
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_router_kernels_pad_rows_leave_real_rows():
+    """Rows appended with zero lambdas (the engine's bucket padding)
+    leave the real rows' outputs bit for bit as they were."""
+    _card()
+    M = 11
+    t = _head_case(5, M, False, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    padded = dict(t)
+    padded["emb"] = torch.cat([t["emb"], torch.randn(
+        11, 128, device="cuda", generator=g) * 9])
+    padded["lam"] = torch.cat([t["lam"], torch.zeros(11, 2, device="cuda")])
+    alone = _router_both(t, _ladder(M))
+    more = _router_both(padded, _ladder(M))
+    for a, b in zip(alone, more):
+        assert torch.equal(a, b[:5])
 
 
 def _library(device):

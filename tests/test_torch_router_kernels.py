@@ -4,8 +4,10 @@ kernels.
 On the CPU the port's ``router_route`` / ``router_route_cascade`` run
 their plain versions; they are held against ``router_score_fused`` and
 ``router_score_cascade_fused`` in interpret mode and against their
-``ref.py`` oracles: batches of 1, 3 and 37 rows, rows built to tie on
-the constrained score (the first index wins), a tie on the escalation
+``ref.py`` oracles: batches of 1, 3 and 37 rows at a small width, of
+8 and 32 rows at the main path's (d = hh = 128, 11 experts, 2
+constraints) and with 33 experts, rows built to tie on the constrained
+score (the first index wins), a tie on the escalation
 ladder (the earliest rung wins), a pick on the top rung (``esc ==
 choice``), and pad-row independence.  The CUDA kernels are held
 against the plain versions on the card in ``tests/test_torch_gpu.py``.
@@ -35,15 +37,24 @@ from repro.kernels.router_score.ref import router_score_ref  # noqa: E402
 RTOL = ATOL = 1e-5
 D, HH, M, NC = 32, 48, 5, 2
 LADDER = np.array([3, 0, 4, 1, 2], np.int32)   # expert -> rung
+# (B, d, hh, M, n_c): the small width, the main path's, 33 experts
+SHAPES = [(1, D, HH, M, NC), (3, D, HH, M, NC), (37, D, HH, M, NC),
+          (8, 128, 128, 11, 2), (32, 128, 128, 11, 2), (5, 128, 128, 33, 2)]
 
 
-def _case(B, seed=0):
+def _case(B, seed=0, d=D, hh=HH, m=M, nc=NC):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
-    return {"emb": f(B, D), "w1": f(D, HH) / 5, "b1": f(HH) / 5,
-            "w2": f(HH, M) / 6, "b2": f(M) / 5, "uw1": f(D, HH) / 5,
-            "ub1": f(HH) / 5, "uw2": f(HH, M) / 6, "ub2": f(M) / 5,
-            "cvals": np.abs(f(NC, M)), "lam": np.abs(f(B, NC))}
+    return {"emb": f(B, d), "w1": f(d, hh) / 5, "b1": f(hh) / 5,
+            "w2": f(hh, m) / 6, "b2": f(m) / 5, "uw1": f(d, hh) / 5,
+            "ub1": f(hh) / 5, "uw2": f(hh, m) / 6, "ub2": f(m) / 5,
+            "cvals": np.abs(f(nc, m)), "lam": np.abs(f(B, nc))}
+
+
+def _ladder(m):
+    """The test ladder at 5 experts, else a seeded permutation."""
+    return LADDER if m == M else np.random.default_rng(m).permutation(
+        m).astype(np.int32)
 
 
 def _tied(B):
@@ -74,7 +85,7 @@ def _port_cascade(c):
     head = {k: t[k] for k in ("w1", "b1", "w2", "b2")}
     unc = {k[1:]: t[k] for k in ("uw1", "ub1", "uw2", "ub2")}
     out = rc_ops.router_route_cascade(t["emb"], head, unc, c["cvals"],
-                                      c["lam"], LADDER)
+                                      c["lam"], _ladder(c["b2"].shape[0]))
     return tuple(o.numpy() for o in out)
 
 
@@ -93,7 +104,8 @@ def _check_score(c):
 
 def _check_cascade(c):
     pred, sigma, choice, esc = _port_cascade(c)
-    args = [jnp.asarray(c[k]) for k in CASCADE_KEYS] + [jnp.asarray(LADDER)]
+    args = [jnp.asarray(c[k]) for k in CASCADE_KEYS] + [
+        jnp.asarray(_ladder(c["b2"].shape[0]))]
     for ref in (router_score_cascade_fused(*args, block_b=8, interpret=True),
                 router_score_cascade_ref(*args)):
         jpred, jsigma, jchoice, jesc = (np.asarray(a) for a in ref)
@@ -104,14 +116,14 @@ def _check_cascade(c):
     return choice, esc
 
 
-@pytest.mark.parametrize("B", [1, 3, 37])
-def test_router_route_matches_pallas(B):
-    _check_score(_case(B, seed=B))
+@pytest.mark.parametrize("B,d,hh,m,nc", SHAPES)
+def test_router_route_matches_pallas(B, d, hh, m, nc):
+    _check_score(_case(B, B, d, hh, m, nc))
 
 
-@pytest.mark.parametrize("B", [1, 3, 37])
-def test_router_route_cascade_matches_pallas(B):
-    _check_cascade(_case(B, seed=B + 100))
+@pytest.mark.parametrize("B,d,hh,m,nc", SHAPES)
+def test_router_route_cascade_matches_pallas(B, d, hh, m, nc):
+    _check_cascade(_case(B, B + 100, d, hh, m, nc))
 
 
 def test_ties_go_to_the_first_index():
@@ -159,11 +171,24 @@ def test_pad_rows_do_not_change_real_rows():
 
 
 def test_launch_plan_clamps_the_tile():
-    assert rs_ops.launch_plan(37, 8) == {"block_b": 8, "padded_batch": 40,
-                                         "grid": 5}
-    assert rs_ops.launch_plan(3, 8) == {"block_b": 3, "padded_batch": 3,
-                                        "grid": 1}
-    assert rc_ops.decision_plan(32) == rs_ops.decision_plan(32)
+    """A cluster of CLUSTER blocks per row, each a slice of the hidden
+    units; the k-groups fill at most THREADS threads and never
+    outnumber the rows of w1; the block is whole warps."""
+    assert (rs_ops.CLUSTER, rs_ops.THREADS) == (8, 256)
+    assert rs_ops.decision_plan(37, 128, 128) == {
+        "grid": 296, "cluster": 8, "units_per_block": 16, "threads": 256,
+        "k_groups": 16}
+    assert rc_ops.decision_plan(32, 128, 128) == {
+        "grid": 256, "cluster": 8, "units_per_block": 16, "threads": 256,
+        "k_groups": 8}
+    plan = rs_ops.decision_plan(3, 80, 96)                       # 12 units
+    assert (plan["k_groups"], plan["threads"]) == (16, 192)
+    plan = rs_ops.decision_plan(1, 2, 48)                        # d = 2
+    assert (plan["k_groups"], plan["threads"]) == (2, 32)
+    assert rs_ops.decision_plan(1, 1, 20)["threads"] == 32       # whole warps
+    plan = rs_ops.decision_plan(1, 128, 4096)                    # > THREADS
+    assert (plan["units_per_block"], plan["k_groups"],
+            plan["threads"]) == (512, 1, 256)
 
 
 def test_wrappers_check_their_inputs():
