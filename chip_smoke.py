@@ -7,13 +7,20 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and holds each against its plain PyTorch version at its path's shapes.
-Then it drives the port's two paths, each with the launch counts set to
-0 just before it and read just after:
+Then it drives the port's paths, each with the launch counts set to 0
+just before it and read just after:
 
 * ``main_path``: 256 requests through ``TryageEngine.run()`` over the
   paper-scale library (11 experts, vocab 512, seeded random weights)
   with the router's uncertainty head and the fused cascade on; the
   answers must match a CPU run of the same engine;
+* ``serve_path``: the same library, router and requests through
+  ``TryageEngine.serve()`` (continuous batching, ``max_wait_s=10``):
+  the decisions and NLL must match ``run()``'s with fewer padded rows;
+  then with speculative escalation, with the busiest expert forced down
+  and with failures injected into its lane (a health tracker), behind
+  the session front end with a queue of 32, through the metrics export,
+  and for 64 requests on the CPU;
 * ``xlstm_serve``: the full ``xlstm-1.3b`` config (48 layers, 3.43 B
   parameters, bf16, seeded random weights) prefills 4 prompts of 512
   tokens with ``prefill_step`` and greedy-decodes 32 tokens with
@@ -367,20 +374,21 @@ def batch_sizes(module, fn_name: str):
         setattr(module, fn_name, inner)
 
 
-def main_path_phase(torch) -> dict:
+def main_setup(torch):
+    """What ``main_path`` and ``serve_path`` share: the paper-scale
+    library and router with seeded random weights on the card, their
+    copies on the CPU, the constraints, the prompts and the cascade
+    threshold.  ``requests()`` makes the 256 requests anew."""
+    from types import SimpleNamespace
+
     from repro_torch.core import objective
     from repro_torch.core.library import ModelLibrary, paper_library_specs
     from repro_torch.core.router import (RouterConfig, init_router,
                                          predict_losses, predict_uncertainty)
     from repro_torch.data.batching import mlm_batch
     from repro_torch.data.corpus import DOMAINS, DomainCorpus
-    from repro_torch.kernels import launches
-    from repro_torch.kernels.router_cascade import ops as rc_ops
-    from repro_torch.kernels.router_score import ops as rs_ops
-    from repro_torch.models import attention
     from repro_torch.models.model import count_params, init_model
-    from repro_torch.serving import (Request, TryageEngine, lambda_matrix,
-                                     parse_flags)
+    from repro_torch.serving import Request, lambda_matrix, parse_flags
 
     t_setup = time.perf_counter()
     lib = ModelLibrary(paper_library_specs(vocab=512))
@@ -410,9 +418,40 @@ def main_path_phase(torch) -> dict:
     first = scores.argmin(1)
     conf = objective.confidence_scores(sigma)[np.arange(len(casc)), first]
     thr = float(np.median(conf))
+    lib_cpu = copy.deepcopy(lib)
+    for e in lib_cpu.experts:
+        e.params.cpu()
+    return SimpleNamespace(
+        lib=lib, router=router, rc=rc, cons=cons, cnames=cnames, cmat=cmat,
+        thr=thr, lib_cpu=lib_cpu, router_cpu=copy.deepcopy(router).cpu(),
+        requests=lambda: make_requests(Request, parse_flags, mb, thr),
+        setup_s=time.perf_counter() - t_setup)
+
+
+def near_tie(s, req, result) -> bool:
+    """Whether the CPU ``result`` for ``req`` lies within CHOICE_GAP of
+    another choice: its top-two constrained scores, or its confidence
+    and the threshold."""
+    from repro_torch.serving import lambda_matrix
+    sc = np.sort(result.pred_losses
+                 + lambda_matrix([req], s.cnames)[0] @ s.cmat)
+    return (sc[1] - sc[0] < CHOICE_GAP
+            or abs(result.confidence - s.thr) < CHOICE_GAP)
+
+
+def main_path_phase(torch, s) -> tuple[dict, dict]:
+    """256 requests through ``run()``; returns (the phase's line, the
+    Results by uid)."""
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.router_cascade import ops as rc_ops
+    from repro_torch.kernels.router_score import ops as rs_ops
+    from repro_torch.models import attention
+    from repro_torch.serving import TryageEngine
+
+    lib, router, thr = s.lib, s.router, s.thr
 
     def engine(library, rtr, device):
-        return TryageEngine(library, rtr, rc, cons, max_batch=MAX_BATCH,
+        return TryageEngine(library, rtr, s.rc, s.cons, max_batch=MAX_BATCH,
                             fused_cascade=True, device=device)
 
     def serve(eng, reqs):
@@ -420,12 +459,10 @@ def main_path_phase(torch) -> dict:
             eng.submit(r)
         return {r.uid: r for r in eng.run()}
 
-    setup_s = time.perf_counter() - t_setup
-    serve(engine(lib, router, "cuda"),
-          make_requests(Request, parse_flags, mb, thr))       # warm-up
+    serve(engine(lib, router, "cuda"), s.requests())          # warm-up
     torch.cuda.synchronize()
     eng = engine(lib, router, "cuda")
-    reqs = make_requests(Request, parse_flags, mb, thr)
+    reqs = s.requests()
     torch.cuda.reset_peak_memory_stats()
     launches.reset_launch_counts()
     with batch_sizes(attention, "flash_attention") as batch_hist, \
@@ -454,35 +491,15 @@ def main_path_phase(torch) -> dict:
 
     # one more run under the profiler: where the device time goes
     profile = device_profile(torch, lambda: serve(
-        engine(lib, router, "cuda"),
-        make_requests(Request, parse_flags, mb, thr)),
+        engine(lib, router, "cuda"), s.requests()), wall * 1e3,
         match={name: SOURCES[name][2] for name in ROUTER_PATH})
-    # busy share against the timed (unprofiled) run of the same work
-    profile["busy_share"] = profile["device_busy_ms"] / (wall * 1e3)
 
     # the first 64 requests (one single-shot batch, one cascade batch)
     # again, on the CPU with the same weights through the plain versions
-    lib_cpu = copy.deepcopy(lib)
-    for e in lib_cpu.experts:
-        e.params.cpu()
-    cpu = serve(engine(lib_cpu, copy.deepcopy(router).cpu(), "cpu"),
-                make_requests(Request, parse_flags, mb, thr)[:64])
-    mismatched, excused = [], 0
-    for uid, c in cpu.items():
-        g = res[uid]
-        if (g.expert, g.cascade_depth) == (c.expert, c.cascade_depth):
-            check(abs(g.loss - c.loss) <= NLL_ATOL,
-                  f"uid {uid}: NLL {g.loss} on the card, {c.loss} on CPU")
-            continue
-        s = np.sort(c.pred_losses
-                    + lambda_matrix([reqs[uid]], cnames)[0] @ cmat)
-        if s[1] - s[0] < CHOICE_GAP or abs(c.confidence - thr) < CHOICE_GAP:
-            excused += 1
-        mismatched.append(uid)
-    check(len(mismatched) == excused,
-          f"card and CPU engines disagree on uids {mismatched}")
+    cpu = serve(engine(s.lib_cpu, s.router_cpu, "cpu"), s.requests()[:64])
+    mismatched, excused = cpu_mismatches(s, reqs, res, cpu)
     out = {"requests": N_REQUESTS, "wall_s": wall,
-           "req_per_s": N_REQUESTS / wall, "setup_s": setup_s,
+           "req_per_s": N_REQUESTS / wall, "setup_s": s.setup_s,
            "peak_memory_bytes": peak, "launches": counts,
            "threshold": thr, "cascade_rows": n_casc, "escalations": esc,
            "attention_batch_hist": dict(sorted(batch_hist.items())),
@@ -497,6 +514,7 @@ def main_path_phase(torch) -> dict:
            "profiled_run": profile,
            "cache_hits": eng.stats.cache_hits,
            "router_batches": eng.stats.router_batches,
+           "padded_rows": eng.stats.padded_rows,
            "bucket_hits": {int(k): v for k, v in
                            sorted(eng.stats.bucket_hits.items())},
            "per_expert": dict(eng.stats.per_expert),
@@ -504,6 +522,181 @@ def main_path_phase(torch) -> dict:
            "cpu_rerun": {"requests": len(cpu), "mismatched": mismatched,
                          "near_tie_excused": excused}}
     emit("main_path", **out)
+    return out, res
+
+
+def cpu_mismatches(s, reqs, card, cpu) -> tuple[list, int]:
+    """Hold the card's Results against the CPU's by uid: the same expert
+    and depth with NLL within NLL_ATOL, or a near tie on the CPU.
+    Returns (the uids that differ, how many of them are near ties)."""
+    mismatched, excused = [], 0
+    for uid, c in cpu.items():
+        g = card[uid]
+        if (g.expert, g.cascade_depth) == (c.expert, c.cascade_depth):
+            check(abs(g.loss - c.loss) <= NLL_ATOL,
+                  f"uid {uid}: NLL {g.loss} on the card, {c.loss} on CPU")
+            continue
+        excused += near_tie(s, reqs[uid], c)
+        mismatched.append(uid)
+    check(len(mismatched) == excused,
+          f"card and CPU engines disagree on uids {mismatched}")
+    return mismatched, excused
+
+
+def serve_path_phase(torch, s, run_res: dict, run_line: dict,
+                     card: str) -> dict:
+    """``serve()`` over ``main_path``'s library, router, threshold and
+    256 requests: timed against ``run()``, then with speculation, a
+    health tracker (an expert forced down; failures injected through
+    ``engine.scheduler``), the session front end, the metrics export,
+    and a CPU rerun of the first 64 requests."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import attention
+    from repro_torch.serving import (ExpertHealth, ServingFrontend, Session,
+                                     TryageEngine, metric_names, render)
+
+    names = [e.name for e in s.lib.experts]
+
+    def engine(lib=s.lib, router=s.router, device="cuda", **kw):
+        return TryageEngine(lib, router, s.rc, s.cons, max_batch=MAX_BATCH,
+                            fused_cascade=True, max_wait_s=10.0,
+                            device=device, **kw)
+
+    def once(results, what, n=N_REQUESTS):
+        check(sorted(r.uid for r in results) == list(range(n)),
+              f"{what}: not one Result per request")
+        return {r.uid: r for r in results}
+
+    # 1. serve(), timed, after a warm-up (benchmarks/run.py:bench_scheduler's
+    #    max_wait_s), against main_path's run() on the same requests
+    list(engine().serve(iter(s.requests())))
+    torch.cuda.synchronize()
+    eng = engine()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset_launch_counts()
+    with batch_sizes(attention, "flash_attention") as batch_hist:
+        t0 = time.perf_counter()
+        res = once(list(eng.serve(iter(s.requests()))), "serve()")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ROUTER_PATH:
+        check(counts[name] > 0, f"kernel {name} was not launched by serve()")
+    nll_err = 0.0
+    for uid, r in res.items():
+        ref = run_res[uid]
+        check((r.expert, r.cascade_depth) == (ref.expert, ref.cascade_depth),
+              f"uid {uid}: serve() chose {r.expert}@{r.cascade_depth}, "
+              f"run() {ref.expert}@{ref.cascade_depth}")
+        check(r.loss is not None and np.isfinite(r.loss),
+              f"uid {uid}: bad loss")
+        nll_err = max(nll_err, abs(r.loss - ref.loss))
+    check(nll_err <= NLL_ATOL, f"serve() NLL {nll_err} from run()'s")
+    st = eng.stats
+    run_padded = run_line["padded_rows"]
+    check(st.padded_rows < run_padded,
+          f"serve() padded {st.padded_rows} rows, run() {run_padded}")
+    profile = device_profile(torch, lambda: list(engine().serve(
+        iter(s.requests()))), wall * 1e3,
+        match={name: SOURCES[name][2] for name in ROUTER_PATH})
+    hot = max(st.per_expert, key=st.per_expert.get)
+    hot_idx = names.index(hot)
+
+    # 2. speculative escalation: the same decisions, every verdict once
+    spec = engine(speculate=True)
+    spec_res = once(list(spec.serve(iter(s.requests()))), "speculate")
+    for uid, r in spec_res.items():
+        check((r.expert, r.cascade_depth)
+              == (res[uid].expert, res[uid].cascade_depth),
+              f"uid {uid}: speculation changed the decision")
+    sp = spec.stats
+    check(sp.spec_launched > 0, "nothing was speculated")
+    check(sp.spec_launched == sp.spec_hits + sp.spec_cancelled
+          + sp.spec_wasted, "speculation accounting does not balance")
+
+    # 3. health: the busiest expert forced down, then failures injected
+    down = ExpertHealth(len(s.lib), now_fn=lambda: 0.0)
+    down.force_down(hot_idx)
+    fb = engine(health=down)
+    fb_res = once(list(fb.serve(iter(s.requests()))), "force_down")
+    check(all(r.expert != hot for r in fb_res.values()),
+          f"a Result names the forced-down {hot}")
+    check(fb.stats.fallbacks > 0, "no route-time fallback")
+    health = ExpertHealth(len(s.lib), now_fn=lambda: 0.0)
+    inj = engine(health=health, fallback_max_depth=2)
+
+    def arrivals():
+        for i, r in enumerate(s.requests()):
+            if i == 0:
+                inj.scheduler.inject_failures(hot_idx, 2)
+            yield r
+
+    inj_res = once(list(inj.serve(arrivals())), "inject_failures")
+    check(inj.stats.reroutes > 0 and inj.stats.failed == 0,
+          f"{inj.stats.reroutes} re-routes, {inj.stats.failed} failed")
+
+    # 4. the front end: 4 sessions of 64 requests, a queue of 32
+    fe_eng = engine()
+    reqs = s.requests()
+    for r in reqs:
+        r.priority = r.uid % 3
+    fe = ServingFrontend(fe_eng, [Session(f"s{k}", reqs[k::4])
+                                  for k in range(4)], capacity=32)
+    answered = [r.uid for r in fe.serve()]
+    check(fe_eng.stats.shed > 0, "the front end shed nothing")
+    check(not set(answered) & set(fe.shed_uids)
+          and sorted(answered + fe.shed_uids) == list(range(N_REQUESTS)),
+          "answered and shed uids do not partition the requests")
+
+    # 5. the metrics export of step 3's injected run
+    text = render(inj.stats, health, names)
+    for name in metric_names():
+        check(text.count(f"# TYPE {name} ") == 1, f"metric {name}")
+    check(f"tryage_requests_served_total {len(inj_res)}\n" in text,
+          "tryage_requests_served_total is not the Results served")
+
+    # 6. the first 64 requests through serve() on the CPU
+    cpu = once(list(engine(s.lib_cpu, s.router_cpu, "cpu").serve(
+        iter(s.requests()[:64]))), "CPU serve()", 64)
+    mismatched, excused = cpu_mismatches(s, s.requests(), res, cpu)
+
+    out = {"card": card, "requests": N_REQUESTS, "wall_s": wall,
+           "req_per_s": N_REQUESTS / wall,
+           "run_req_per_s": run_line["req_per_s"],
+           "padded_rows": st.padded_rows, "run_padded_rows": run_padded,
+           "flushes": dict(st.flushes), "lane_peaks": st.lane_peaks,
+           "latency": st.latency_percentiles(),
+           "bucket_hits": {int(k): v for k, v in
+                           sorted(st.bucket_hits.items())},
+           "run_bucket_hits": run_line["bucket_hits"],
+           "attention_batch_hist": dict(sorted(batch_hist.items())),
+           "launches": counts, "peak_memory_bytes": peak,
+           "router_batches": st.router_batches,
+           "router_time_s": st.router_time_s,
+           "expert_time_s": st.expert_time_s,
+           "nll_max_abs_err_vs_run": nll_err,
+           "profiled_serve": profile,
+           "speculation": {"launched": sp.spec_launched,
+                           "hits": sp.spec_hits,
+                           "cancelled": sp.spec_cancelled,
+                           "wasted": sp.spec_wasted},
+           "force_down": {"expert": hot, "fallbacks": fb.stats.fallbacks,
+                          "degraded": fb.stats.degraded},
+           "inject_failures": {"expert": hot, "reroutes": inj.stats.reroutes,
+                               "failed": inj.stats.failed,
+                               "expert_failures":
+                                   dict(inj.stats.expert_failures)},
+           "frontend": {"sessions": 4, "capacity": 32,
+                        "admitted": fe_eng.stats.admitted,
+                        "shed": fe_eng.stats.shed,
+                        "shed_by_priority":
+                            dict(fe_eng.stats.shed_by_priority),
+                        "queue_peak": fe_eng.stats.admission_queue_peak},
+           "metrics_series": len(metric_names()),
+           "cpu_rerun": {"requests": len(cpu), "mismatched": mismatched,
+                         "near_tie_excused": excused}}
+    emit("serve_path", **out)
     return out
 
 
@@ -648,12 +841,9 @@ def xlstm_serve_phase(torch):
                 model, {"tokens": tok}, st, XLSTM_S))
     prof_prefill = device_profile(
         torch, lambda: prefill_step(model, {"tokens": prompts}),
-        match={"mlstm_scan": SOURCES["mlstm_scan"][2]})
-    prof_prefill["busy_share"] = prof_prefill["device_busy_ms"] / (
-        prefill_s * 1e3)
+        prefill_s * 1e3, match={"mlstm_scan": SOURCES["mlstm_scan"][2]})
     prof_decode = device_profile(
-        torch, lambda: serve_step(model, st, tok, XLSTM_S))
-    prof_decode["busy_share"] = prof_decode["device_busy_ms"] / (
+        torch, lambda: serve_step(model, st, tok, XLSTM_S),
         decode_s * 1e3 / XLSTM_DECODE)
     del model, state, st
     torch.cuda.empty_cache()
@@ -860,30 +1050,35 @@ def xlstm_crosscheck_phase(torch, corpus) -> dict:
 
 # -------------------------------------------------------------- phase 5
 
-def device_profile(torch, fn, top=8, match=None) -> dict:
+def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
     """Kernel time on the card for one call of ``fn`` under the
     profiler, with the top kernels, and for each ``match`` entry (name:
     substring) the time of the kernels whose names hold the substring.
-    The profiled wall time includes the profiler's own start-up and is
-    reported only as such."""
+    ``busy_share`` is the device time over ``wall_ms``, the timed
+    (unprofiled) run of the same work.  The profiled wall time includes
+    the profiler's own start-up and is reported only as such.  Where the
+    trace shows no device time at all (the profiler could not trace the
+    card), every device figure is None: not measured, rather than an
+    idle card."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
          for e in prof.key_averages()
          if str(e.device_type).endswith("CUDA")
          and e.self_device_time_total > 0), key=lambda k: -k[1])
-    busy = sum(k[1] for k in kernels)
-    out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+    busy = sum(k[1] for k in kernels) or None
+    out = {"profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy,
+           "busy_share": busy / wall_ms if busy else None,
            "top_kernels": [{"name": n[:80], "ms": t, "count": c}
                            for n, t, c in kernels[:top]]}
     for name, sub in (match or {}).items():
-        ms = sum(t for n, t, _ in kernels if sub in n)
+        ms = sum(t for n, t, _ in kernels if sub in n) if busy else None
         out[f"{name}_ms"] = ms
         out[f"{name}_share"] = ms / busy if busy else None
     return out
@@ -1008,8 +1203,9 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
         if libcall is not None:
             # the library call's own kernels, device time and error
             lib_k = profiled_kernels(torch, libcall)
-            entry["library_kernel"] = max(lib_k, key=lib_k.get)[:80]
-            entry["library_device_ms"] = sum(lib_k.values())
+            entry["library_kernel"] = (max(lib_k, key=lib_k.get)[:80]
+                                       if lib_k else None)
+            entry["library_device_ms"] = sum(lib_k.values()) or None
             entry["library_max_abs_err"] = lib_err()
         (kernels if n < len(rows) else extra_out).append(entry)
     emit("times", kernels=kernels, extra_shapes=extra_out,
@@ -1018,7 +1214,8 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
              torch, rs_ops, rc_ops, d, hh, M, n_c),
          method="ms/plain_ms/library_ms: CUDA events over 200 back-to-back "
                 "calls after 20 warm-up calls; device_ms/library_device_ms: "
-                "profiler device time of the call's kernels alone; "
+                "profiler device time of the call's kernels alone "
+                "(null where the profiler's trace shows none); "
                 "library_max_abs_err: the library call against the plain "
                 "version; launch_floor: an empty kernel through the "
                 "wrappers' launch path, at one warp and at the "
@@ -1098,7 +1295,9 @@ def main() -> int:
     info = device_phase(torch)
     build_phase()
     err = parity_phase(torch)
-    main = main_path_phase(torch)
+    setup = main_setup(torch)
+    main, run_res = main_path_phase(torch, setup)
+    serve_path_phase(torch, setup, run_res, main, info["nvidia_smi"])
     xlstm, corpus = xlstm_serve_phase(torch)
     xlstm_crosscheck_phase(torch, corpus)
     # launches of each kernel in the run of the path that uses it

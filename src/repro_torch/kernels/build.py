@@ -89,6 +89,21 @@ def library() -> KernelLibrary:
         return _loaded
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through kernel ``name``.
+
+    The kernels write their outputs through ctypes into fresh buffers
+    that carry no ``grad_fn``, and none has a backward yet: a loss
+    behind one would get no gradient and nothing would say so.  The
+    plain versions (CPU tensors) stay differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet; call it under "
+            f"torch.no_grad() or torch.inference_mode(), or detach its "
+            f"inputs")
+
+
 def launch(fn: str, device, *args) -> None:
     """Launch through C entry point ``fn`` on CUDA ``device``: ``args``
     and then PyTorch's current stream there, with ``device`` current.

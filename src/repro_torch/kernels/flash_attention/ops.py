@@ -77,6 +77,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                                softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
+    build.refuse_grad("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM or hd % 8:

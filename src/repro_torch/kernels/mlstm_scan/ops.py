@@ -144,6 +144,8 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
         return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise: no kernel for {q.device}")
+    build.refuse_grad("mlstm_chunkwise", q, k, v, i_pre, f_pre,
+                      *state.values())
     B, S, H, dh = q.shape
     if dh % 8 or dh > MAX_HEAD_DIM:
         raise ValueError(f"mlstm_chunkwise: head_dim {dh} must be a multiple "

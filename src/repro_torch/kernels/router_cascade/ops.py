@@ -79,6 +79,8 @@ def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
     if emb.device.type == "cpu":
         return router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
                                     cvals, lam, ladder_pos)
+    build.refuse_grad(name, emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
+                      lam)
     B, d = emb.shape
     hh = w2.shape[0]
     plan = decision_plan(B, d, hh)

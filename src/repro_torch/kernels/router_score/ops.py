@@ -102,6 +102,7 @@ def router_score_fused(emb, w1, b1, w2, b2, cvals, lam):
     check_head("router_score", emb, w1, b1, w2, b2, cvals, lam)
     if emb.device.type == "cpu":
         return router_score_plain(emb, w1, b1, w2, b2, cvals, lam)
+    build.refuse_grad("router_score", emb, w1, b1, w2, b2, cvals, lam)
     B, d = emb.shape
     hh, M = w2.shape
     plan = decision_plan(B, d, hh)

@@ -1,14 +1,15 @@
 """The staged serving pipeline: Route -> Cascade -> Fallback on an
 admission batch, Execute -> Feedback on a per-expert micro-batch.
 
-A port of ``repro.serving.pipeline`` for the exact-cache, health-unaware
-engine: Route probes the T1 ``DecisionCache`` and scores the misses as
-one batch (through the fused cascade kernel when the batch carries
-cascade traffic and the engine allows it); Cascade applies the
+A port of ``repro.serving.pipeline`` for the exact-cache engine: Route
+probes the T1 ``DecisionCache`` and scores the misses as one batch
+(through the fused cascade kernel when the batch carries cascade
+traffic and the engine allows it); Cascade applies the
 abstention/escalation rule to the freshly scored rows and memoises the
-post-cascade verdict; Fallback is the strict no-op it is without a
-health tracker; Execute runs the padded expert forward and builds
-``Result``s; Feedback publishes observed losses to the replay buffer.
+post-cascade verdict; Fallback re-routes rows whose expert the health
+tracker holds unavailable (a strict no-op without one); Execute runs
+the padded expert forward and builds ``Result``s; Feedback publishes
+observed losses to the replay buffer.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
+from repro_torch.core.objective import fallback_choice
 from repro_torch.serving.cache import DecisionCache
-from repro_torch.serving.requests import Request, Result
+from repro_torch.serving.requests import Request, Result, lambda_matrix
 from repro_torch.serving.scheduler import LaneEntry
 
 if TYPE_CHECKING:                                      # pragma: no cover
@@ -147,13 +149,41 @@ class CascadeStage:
 
 
 class FallbackStage:
-    """Health consult.  The port has no health tracker yet, so this is
-    the strict no-op the JAX stage is without one."""
+    """Health consult: walk the fallback chain for requests whose chosen
+    expert is unhealthy or saturated (``core.objective.fallback_choice``
+    over ``engine.health``'s availability mask).
+
+    Runs after Cascade on every row, cache hits included: health is
+    time-varying and never memoised, so the cache keeps the pre-fallback
+    verdict and this stage re-applies the current health picture.  With
+    no health tracker, no fallback budget, or every expert available it
+    is a strict no-op."""
 
     def __init__(self, engine: "TryageEngine"):
         self.eng = engine
 
     def __call__(self, ctx: RouteContext) -> RouteContext:
+        eng = self.eng
+        if eng.health is None or eng.fallback_max_depth <= 0:
+            return ctx
+        avail = eng.health.available_mask()
+        if avail.all():
+            return ctx
+        healthy = eng.health.healthy_mask()
+        # the constrained objective Route minimised: L-hat + lambda . C
+        scores = ctx.pred + lambda_matrix(ctx.reqs, eng._cnames) @ eng._cmat
+        for i in range(len(ctx.reqs)):
+            final, fdepth, degraded = fallback_choice(
+                scores[i], healthy, avail, int(ctx.choice[i]),
+                eng._esc_order, eng.fallback_max_depth)
+            if fdepth == 0:
+                continue
+            ctx.choice[i] = final
+            ctx.fallback_depth[i] = fdepth
+            eng.stats.fallbacks += 1
+            eng.stats.fallback_depth_hist[fdepth] += 1
+            if degraded:
+                eng.stats.degraded += 1
         return ctx
 
 

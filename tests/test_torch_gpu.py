@@ -16,7 +16,10 @@ which keeps f32 accuracy: tests/test_torch_tf32.py); mLSTM scan, also
 magnitude (f32 sums over up to 1024 terms in another order, then h
 divides by a running denominator);
 the xLSTM on the card against the CPU: logits atol=rtol=1e-4 and the
-same greedy tokens.
+same greedy tokens; ``serve()`` on the card against the CPU: the same
+expert and depth per uid, NLL atol=rtol=1e-4.  No kernel has a backward
+yet, so each wrapper refuses a CUDA input that requires grad under
+grad mode.
 """
 
 import copy
@@ -37,7 +40,7 @@ from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
 from repro_torch.data.batching import mlm_batch
 from repro_torch.models.model import count_params, init_model
-from repro_torch.serving import Request, TryageEngine
+from repro_torch.serving import ExpertHealth, Request, TryageEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -316,3 +319,109 @@ def test_xlstm_on_card_matches_cpu():
     assert (pg, dg) == (cfg.layer_pattern.count("mlstm"), 0)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(tg, tc)
+
+
+def _grad_cases():
+    """(name, wrapper call on CUDA tensors whose first input requires
+    grad when ``grad`` is set)."""
+    def attention(grad):
+        q, k, v = (torch.randn(1, 16, 2, 32, device="cuda")
+                   for _ in range(3))
+        return fa_ops.flash_attention(q.requires_grad_(grad), k, v,
+                                      causal=False)
+
+    def mlstm(grad):
+        r = lambda *s: torch.randn(*s, device="cuda")
+        state = {"C": r(1, 1, 8, 8), "n": r(1, 1, 8), "m": r(1, 1)}
+        return ml_ops.mlstm_chunkwise(r(1, 16, 1, 8).requires_grad_(grad),
+                                      r(1, 16, 1, 8), r(1, 16, 1, 8),
+                                      r(1, 16, 1), r(1, 16, 1), state)
+
+    def score(grad):
+        t = _head_case(2, 11, False, seed=0)
+        t["w1"].requires_grad_(grad)
+        return rs_ops.router_score_fused(*(t[k] for k in (
+            "emb", "w1", "b1", "w2", "b2", "cvals", "lam")))
+
+    def cascade(grad):
+        t = _head_case(2, 11, False, seed=0)
+        t["emb"].requires_grad_(grad)
+        return rc_ops.router_score_cascade_fused(*(t[k] for k in (
+            "emb", "w1", "b1", "w2", "b2", "uw1", "ub1", "uw2", "ub2",
+            "cvals", "lam")), _ladder(11))
+
+    return {"flash_attention": attention, "mlstm_chunkwise": mlstm,
+            "router_score": score, "router_cascade": cascade}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "mlstm_chunkwise",
+                                  "router_score", "router_cascade"])
+def test_wrappers_refuse_grad_on_the_card(name):
+    """No kernel has a backward: under grad mode a CUDA input that
+    requires grad raises instead of silently dropping the gradient;
+    under ``no_grad`` (and with no such input) the kernel launches."""
+    _card()
+    call = _grad_cases()[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(True)
+    with torch.no_grad():
+        call(True)
+    call(False)
+    torch.cuda.synchronize()
+
+
+def test_serve_on_card_matches_cpu():
+    """``serve()`` on the card against the same engine on the CPU: the
+    mixed workload with cascade floors, deadline flushes and a health
+    tracker with an expert forced down, through all three kernels."""
+    _card()
+    rc = RouterConfig(n_models=3, vocab_size=64, num_layers=1, d_model=32,
+                      num_heads=2, d_ff=64)
+    lib_cpu = _library("cpu")
+    router_cpu = init_router(rc, seed=9, uncertainty=True, device="cpu")
+    lib_gpu = copy.deepcopy(lib_cpu)
+    for e in lib_gpu.experts:
+        e.params.cuda()
+    router_gpu = copy.deepcopy(router_cpu).cuda()
+    rng = np.random.default_rng(0)
+    mb = mlm_batch(rng.integers(4, 64, size=(96, 32)).astype(np.int32), rng,
+                   0.2, 64)
+    mix = [{}, {"size": 1.0}, {"size": 8.0}, {"recency": 2.0}]
+    thr = [0.55, 0.6, 0.65, 0.99]
+    out = []
+    for lib, router, dev in ((lib_cpu, router_cpu, "cpu"),
+                             (lib_gpu, router_gpu, "cuda")):
+        clock = [1.0]
+        health = ExpertHealth(3, now_fn=lambda: clock[0])
+        health.force_down(1)
+        eng = TryageEngine(lib, router, rc,
+                           [objective.size_constraint(lib),
+                            objective.recency_constraint(lib)],
+                           max_batch=16, max_wait_s=0.05, fused_cascade=True,
+                           health=health, now_fn=lambda: clock[0],
+                           device=dev)
+
+        def arrivals():
+            for i in range(96):
+                yield Request(uid=i, tokens=mb["tokens"][i],
+                              targets=mb["targets"][i], mask=mb["mask"][i],
+                              lambdas=mix[i % 4],
+                              min_confidence=thr[i % 4] if i >= 32 else 0.0)
+                clock[0] += 0.01
+
+        launches.reset_launch_counts()
+        out.append({r.uid: r for r in eng.serve(arrivals())})
+        counts = launches.launch_counts()
+        flushes = dict(eng.stats.flushes)
+    assert all(counts[n] > 0 for n in ("router_score", "router_cascade",
+                                       "flash_attention")), counts
+    assert flushes.get("deadline", 0) > 0, flushes
+    cpu, gpu = out
+    assert sorted(gpu) == sorted(cpu) == list(range(96))
+    for uid, r in cpu.items():
+        assert (gpu[uid].expert, gpu[uid].cascade_depth,
+                gpu[uid].fallback_depth) == (
+            r.expert, r.cascade_depth, r.fallback_depth), uid
+        assert r.expert != "mid"
+        np.testing.assert_allclose(gpu[uid].loss, r.loss, rtol=1e-4,
+                                   atol=1e-4)
