@@ -26,7 +26,19 @@ just before it and read just after:
   tokens with ``prefill_step`` and greedy-decodes 32 tokens with
   ``serve_step``; ``xlstm_crosscheck`` runs a one-unit f32 copy of it at
   full width on the card and on the CPU and compares them, and holds
-  decode against a longer prefill for the whole config in f32.
+  decode against a longer prefill for the whole config in f32;
+* ``attention_grad``: the attention backward kernel against torch
+  autograd of the plain version at the training shapes and small
+  causal, window, softcap and GQA cases, and a bit-identical rerun;
+* ``train_path``: the paper's experiment pipeline (``run_experiment``
+  with the default ``ExperimentConfig``: 11 experts of
+  ``paper_library_specs(vocab=512)`` trained 300 MLM steps each, the
+  Q-tables, the BERT-small router, the baselines and the Pareto sweep)
+  on the card, with every expert's and the router's loss required to
+  fall, and 3 expert and 3 router steps held card vs CPU;
+* ``adapt_path``: ``benchmarks/run.py``'s drift scenario on the trained
+  library through ``serve()``, a frozen and an adapting engine, and one
+  ``"head"`` and one ``"all"`` online step held card vs CPU.
 
 It checks that every kernel of each path was launched in that path's
 run, and times each kernel beside its bound; the router heads also at
@@ -89,6 +101,30 @@ DECODE_ATOL, DECODE_RTOL = 2e-2, 1e-2
 # and each layer's difference is amplified by the layers after it; a wrong
 # state or chunk gives a gap of the logits' own size)
 ROUNDING_FACTOR = 10.0
+# attention backward vs torch autograd of the plain version: each of dQ,
+# dK, dV within this share of its largest magnitude (f32 sums over up to
+# 128 keys and 8 query heads in another order)
+ATTN_GRAD_REL_TOL = 1e-4
+ATTN_GRAD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
+    (16, 128, 128, 8, 8, 32, False, 0, 0.0),   # roberta-analog
+    (16, 128, 128, 4, 4, 40, False, 0, 0.0),   # the d=160 specialists
+    (32, 128, 128, 4, 4, 32, False, 0, 0.0),   # router, "all" adaptation
+    (2, 77, 77, 4, 2, 16, True, 0, 0.0),
+    (2, 50, 50, 4, 4, 24, True, 9, 0.0),
+    (2, 64, 64, 6, 2, 32, False, 0, 5.0),
+    (1, 40, 40, 2, 1, 128, True, 7, 3.0),
+    (1, 20, 8, 2, 2, 8, False, 3, 0.0),        # rows that see no key
+]
+# training card vs CPU from the same weights: 3 steps' losses and the
+# first step's gradients to this relative error (the weights after 3 Adam
+# steps are held to Adam's reach instead: see card_vs_cpu_training)
+TRAIN_REL_TOL = 1e-4
+TRAIN_BATCH = 16                   # train_expert's batch
+STAGES = ("experts", "qtables", "router", "evaluate")
+# one online step card vs CPU: "head" (the loss head from one embedding
+# pass) and "all" (through the encoder and the attention backward)
+ADAPT_HEAD_TOL, ADAPT_ALL_TOL = 1e-5, 1e-4
+DRIFT_TOL = 0.5    # bench_drift: "routed well" = within 0.5 nats of best
 XLSTM_ARCH, XLSTM_B, XLSTM_S, XLSTM_DECODE = "xlstm-1.3b", 4, 512, 32
 CROSS_S, CROSS_DECODE = 128, 8
 
@@ -110,6 +146,11 @@ SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:25",
                         "flash_attention_kernel"),
+    # no Pallas counterpart: the gradient of the kernel above, which the
+    # JAX package takes by XLA autodiff of attend_full(impl="xla")
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:120", "flash_attention_bwd"),
     "mlstm_scan": ("src/repro_torch/kernels/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan/kernel.py:36",
                    "mlstm_scan"),
@@ -1048,6 +1089,392 @@ def xlstm_crosscheck_phase(torch, corpus) -> dict:
     return out
 
 
+# ------------------------------------------------------ phases 4b-4d (train)
+
+def attn_grad_inputs(torch, B, S, T, H, KV, hd, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    return r(B, S, H, hd), r(B, T, KV, hd), r(B, T, KV, hd), r(B, S, H, hd)
+
+
+def attention_grad_phase(torch) -> float:
+    """The backward kernel's dQ, dK, dV against torch autograd of the
+    plain version, at the training shapes and small causal, window,
+    softcap and GQA cases; a rerun must give bit-identical gradients.
+    Returns the largest max abs error."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cases, worst = [], 0.0
+    for B, S, T, H, KV, hd, causal, window, softcap in ATTN_GRAD_CASES:
+        q, k, v, do = attn_grad_inputs(torch, B, S, T, H, KV, hd, S + hd)
+        masks = dict(causal=causal, window=window, softcap=softcap)
+        _, lse = fa_ops._forward(q, k, v, causal, window, softcap, True)
+        got = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
+        again = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
+        want = fa_ops.attention_grad_plain(q, k, v, do, **masks)
+        torch.cuda.synchronize()
+        case = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, **masks}
+        for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+            e, scale = float((a - w).abs().max()), float(w.abs().max())
+            check(bool(torch.isfinite(a).all())
+                  and e <= ATTN_GRAD_REL_TOL * scale,
+                  f"attention backward {case} {name}: max abs err {e}, "
+                  f"largest {scale}")
+            check(torch.equal(a, b), f"attention backward {case} {name}: "
+                                     f"a rerun differs")
+            case[name] = [e, scale]
+            worst = max(worst, e)
+        cases.append(case)
+    emit("attention_grad", tolerance_rel_to_max=ATTN_GRAD_REL_TOL,
+         bit_identical_rerun=True, max_abs_err=worst, cases=cases)
+    return worst
+
+
+def timed_expert_steps(torch, spec, corpus, steps=20, warmup=3) -> dict:
+    """ms per training step of one expert at the experiment's batch
+    (16 x 128), on fresh weights: host clock around ``steps`` steps
+    ending in a sync, after a warm-up."""
+    from repro_torch.core.training import expert_step, to_device
+    from repro_torch.data.batching import BatchIterator
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import adamw_init
+    model = init_model(spec.cfg, seed=0, device="cuda")
+    opt = adamw_init(model)
+    it = BatchIterator(corpus, spec.train_mixture, TRAIN_BATCH, SEQ, seed=1)
+    batches = [to_device(next(it), "cuda") for _ in range(steps + warmup)]
+    for b in batches[:warmup]:
+        opt, _ = expert_step(model, opt, b, lr=1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        opt, _ = expert_step(model, opt, b, lr=1e-3)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return {"ms_per_step": ms,
+            "tokens_per_s": TRAIN_BATCH * SEQ / (ms / 1e3),
+            "step": lambda: expert_step(model, opt, batches[-1], lr=1e-3)}
+
+
+def leaf_errors(a, b) -> dict:
+    """Per parameter of modules ``a`` (card) and ``b`` (CPU): max abs
+    difference over the CPU's largest magnitude."""
+    out = {}
+    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        y = y.detach()
+        out[n] = float((x.detach().cpu() - y).abs().max()) / max(
+            float(y.abs().max()), 1e-12)
+    return out
+
+
+def adam_agreement(a, b) -> dict:
+    """Weights of ``a`` (card) and ``b`` (CPU) after Adam steps, per
+    leaf: the largest distance, and how many elements lie farther apart
+    than TRAIN_REL_TOL of the leaf's largest magnitude."""
+    out = {}
+    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        d = (x.detach().cpu() - y.detach()).abs()
+        far = d > TRAIN_REL_TOL * float(y.detach().abs().max())
+        out[n] = {"max_abs": float(d.max()), "n_far": int(far.sum()),
+                  "size": d.numel()}
+    return out
+
+
+def card_vs_cpu_training(torch, corpus, rc) -> dict:
+    """3 expert steps (the largest expert) and 3 router steps from the
+    same starting weights on the card and on a CPU copy.  Gates: the 3
+    losses to rtol TRAIN_REL_TOL; the first step's gradients, taken from
+    the same weights, within TRAIN_REL_TOL of each leaf's largest
+    gradient; after the 3 steps every weight within 2 * 3 * lr of the
+    CPU's.  Weights are not held to TRAIN_REL_TOL of their leaf: Adam
+    divides each gradient by its own magnitude, so an element whose
+    gradient is within rounding of zero steps by about lr either way,
+    and one whose gradient is small carries that gradient's relative
+    error into a full-size step.  How many elements lie farther apart
+    than that is reported (``far_weights``)."""
+    from repro_torch.core.library import paper_library_specs
+    from repro_torch.core.router import init_router
+    from repro_torch.core.training import expert_step, router_step, to_device
+    from repro_torch.data.batching import BatchIterator
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import adamw_init
+    spec = paper_library_specs(vocab=512)[0]
+    gpu_e = init_model(spec.cfg, seed=5, device="cuda")
+    gpu_r = init_router(rc, seed=6, device="cuda")
+    out = {}
+    for name, gpu, lr in (("expert", gpu_e, 1e-3), ("router", gpu_r, 5e-5)):
+        cpu = copy.deepcopy(gpu).cpu()
+        it = BatchIterator(corpus, spec.train_mixture, TRAIN_BATCH, SEQ, seed=9)
+        batches = [next(it) for _ in range(3)]
+        targets = np.random.default_rng(3).uniform(
+            1, 6, (3, TRAIN_BATCH, rc.n_models)).astype(np.float32)
+        losses, grads = {}, {}
+        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            opt, ls = adamw_init(model), []
+            for i, b in enumerate(batches):
+                tb = to_device(b, dev)
+                if name == "expert":
+                    opt, loss = expert_step(model, opt, tb, lr=lr)
+                else:
+                    opt, loss = router_step(
+                        model, opt, rc, tb["tokens"],
+                        torch.from_numpy(targets[i]).to(dev), lr=lr)
+                ls.append(float(loss))
+                if i == 0:
+                    grads[dev] = {n: p.grad.detach().cpu().clone()
+                                  for n, p in model.named_parameters()}
+            losses[dev] = ls
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"]))
+        g_err = {n: float((grads["cuda"][n] - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30)
+                 for n, g in grads["cpu"].items()}
+        agree = adam_agreement(gpu, cpu)
+        worst_g = max(g_err, key=g_err.get)
+        worst_w = max(agree, key=lambda n: agree[n]["max_abs"])
+        bound = 2 * len(batches) * lr
+        check(rel <= TRAIN_REL_TOL and g_err[worst_g] <= TRAIN_REL_TOL
+              and agree[worst_w]["max_abs"] <= bound,
+              f"{name} steps card vs CPU: losses {losses}, first-step "
+              f"gradient of {worst_g} {g_err[worst_g]}, weights of "
+              f"{worst_w} {agree[worst_w]} (bound {bound})")
+        n_far = sum(a["n_far"] for a in agree.values())
+        out[name] = {"losses": losses, "loss_rel_err": rel,
+                     "worst_grad_rel_err": g_err[worst_g],
+                     "worst_grad_leaf": worst_g,
+                     "weights_max_abs": agree[worst_w]["max_abs"],
+                     "weights_bound": bound,
+                     "far_weights": n_far,
+                     "far_share": n_far / sum(a["size"]
+                                              for a in agree.values()),
+                     "far_by_leaf": {n: a["n_far"] for n, a in agree.items()
+                                     if a["n_far"]}}
+    return out
+
+
+def train_path_phase(torch) -> dict:
+    """``run_experiment`` on the card at the paper library's widths
+    (the default ``ExperimentConfig``, nothing cut); returns the phase's
+    line."""
+    from repro_torch.core import experiment as ex
+    from repro_torch.core.library import paper_library_specs
+    from repro_torch.core.router import RouterConfig
+    from repro_torch.data.corpus import DomainCorpus
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    xc = ex.ExperimentConfig()
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ex.run_experiment(xc, verbose=False, save=True, device="cuda",
+                            timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0,
+          f"attention kernels not launched in training: {counts}")
+
+    # per-expert step time and a profiled step of the largest expert
+    corpus = DomainCorpus(vocab_size=xc.vocab, seed=xc.seed)
+    specs = paper_library_specs(vocab=xc.vocab)
+    per_expert = {}
+    for spec in specs:
+        t = timed_expert_steps(torch, spec, corpus)
+        per_expert[spec.name] = {k: v for k, v in t.items() if k != "step"}
+        if spec is specs[0]:
+            largest = t
+    fa_ops.flash_attention_bwd.launches = 0
+    largest["step"]()
+    torch.cuda.synchronize()
+    bwd_per_step = fa_ops.flash_attention_bwd.launches
+    profile = device_profile(torch, largest["step"],
+                             largest["ms_per_step"],
+                             match={"attention_fwd": SOURCES[
+                                 "flash_attention"][2],
+                                 "attention_bwd": SOURCES[
+                                     "flash_attention_bwd"][2]})
+    rc = RouterConfig(n_models=len(specs), vocab_size=xc.vocab)
+    cross = card_vs_cpu_training(torch, corpus, rc)
+
+    # gates: finite results, every expert learned, the router improved
+    flat = [res["router_eps"], res["router_val_best"],
+            *res["selection_accuracy"].values(),
+            *res["aggregate_accuracy"].values(),
+            *(r["accuracy"] for r in res["pareto"]["rows"])]
+    check(all(np.isfinite(x) for x in flat), f"non-finite results: {flat}")
+    tenths = {}
+    for spec, log in zip(specs, timings["expert_logs"]):
+        n = max(len(log.train_loss) // 10, 1)
+        first, last = (float(np.mean(log.train_loss[:n])),
+                       float(np.mean(log.train_loss[-n:])))
+        check(np.isfinite(log.train_loss).all() and last < first,
+              f"{spec.name}: loss {first} over its first tenth, {last} "
+              f"over its last")
+        tenths[spec.name] = [first, last]
+    rlog = timings["router_log"]
+    check(rlog.best_val < rlog.val_loss[0],
+          f"router: best validation {rlog.best_val}, first "
+          f"{rlog.val_loss[0]}")
+    steps = xc.expert_steps * len(specs)
+    out = {"config": res["config"], "wall_s": wall, "stage_s": {k: timings[k] for k in STAGES},
+           "expert_steps": steps,
+           "ms_per_expert_step": timings["experts"] * 1e3 / steps,
+           "per_expert_step": per_expert,
+           "launches": counts,
+           "attention_bwd_per_expert_step": bwd_per_step,
+           "profiled_expert_step": profile,
+           "peak_memory_bytes": peak,
+           "expert_loss_first_last_tenth": tenths,
+           "router_val": {"first": rlog.val_loss[0], "best": rlog.best_val,
+                          "best_step": rlog.best_step,
+                          "checks": len(rlog.val_loss),
+                          "stopped_early": rlog.stopped_early},
+           "router_eps": res["router_eps"],
+           "selection_accuracy": res["selection_accuracy"],
+           "aggregate_accuracy": res["aggregate_accuracy"],
+           "silhouette": res["silhouette"],
+           "pareto": [{k: r[k] for k in ("lam", "accuracy", "size_frac")}
+                      for r in res["pareto"]["rows"]],
+           "card_vs_cpu": cross}
+    emit("train_path", **out)
+    return out
+
+
+def adapt_path_phase(torch) -> dict:
+    """The drift scenario of ``benchmarks/run.py``'s ``bench_drift`` on
+    the port, through ``serve()``: the trained library and router from
+    ``train_path`` (read back with ``load_artifacts``); the router's
+    favourite expert regresses to fresh weights while traffic moves to
+    two of its home domains; a frozen and an adapting engine
+    (``adapt_every=8``, ``"head"``) get the same stream."""
+    from repro_torch.core import experiment as ex
+    from repro_torch.core.qtable import per_prompt_metrics
+    from repro_torch.core.training import make_router_update_step
+    from repro_torch.data.corpus import DOMAINS
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import Request, TryageEngine
+
+    art, cfg = ex.load_artifacts(), ex.load_results()["config"]
+    lib, rp, rc = art["library"], art["router_params"], art["rc"]
+    test_b = []
+    for di, d in enumerate(DOMAINS):
+        test_b += ex._eval_batches(art["corpus"], {d: 1.0},
+                                   cfg["n_test_per_domain"], cfg["seq"],
+                                   cfg["seed"] + 303 + di)
+    cat = lambda k: np.concatenate([b[k] for b in test_b])
+    tokens, targets, mask, domain = (cat("tokens"), cat("targets"),
+                                     cat("mask"), cat("domain"))
+    check(np.array_equal(tokens, art["test_tokens"]),
+          "drift: rebuilt eval batches differ from the saved test tokens")
+    q_pre, pred = art["q_test"]["loss"], art["pred"]
+    names = [e.name for e in lib.experts]
+    choice0 = pred.argmin(1)
+    E = int(np.bincount(choice0, minlength=len(lib)).argmax())
+    good_E = (choice0 == E) & (q_pre[:, E] <= q_pre.min(1) + DRIFT_TOL)
+    counts = np.array([(good_E & (domain == di)).sum()
+                       for di in range(len(DOMAINS))])
+    D = sorted(np.argsort(counts)[::-1][:2].tolist())
+    pool_pre = np.arange(len(tokens))
+    pool_post = np.where(np.isin(domain, D))[0]
+    orig = lib.experts[E].params
+    bad = init_model(lib.experts[E].cfg, seed=4321, device="cuda")
+    q_post = q_pre.copy()
+    q_post[:, E] = np.concatenate([per_prompt_metrics(bad, b)[0]
+                                   for b in test_b])
+    W, n_pre, n_post = 32, 96, 288
+
+    def tolacc(ch, idx, L):
+        return float((L[idx, ch] <= L[idx].min(1) + DRIFT_TOL).mean())
+
+    def timeline(adapt: bool):
+        rng = np.random.default_rng(0)
+        eng = TryageEngine(lib, rp, rc, [], max_batch=32,
+                           adapt_every=8 if adapt else 0, adapt_lr=0.1,
+                           adapt_trainable="head", adapt_batch=32,
+                           replay_cap=128, device="cuda")
+        uid = [0]
+        stale = []
+
+        def window(pool, L):
+            idx = rng.choice(pool, size=W, replace=len(pool) < W)
+            reqs = [Request(uid=uid[0] + j, tokens=tokens[i],
+                            targets=targets[i], mask=mask[i])
+                    for j, i in enumerate(idx)]
+            uid[0] += W
+            out = sorted(eng.serve(iter(reqs)), key=lambda r: r.uid)
+            stale.append(sorted(eng.cache.stale_versions(eng.router_version)))
+            ch = np.array([names.index(r.expert) for r in out])
+            return tolacc(ch, idx, L), ch, idx
+
+        try:
+            lib.experts[E].params = orig
+            pre = [window(pool_pre, q_pre) for _ in range(n_pre // W)]
+            lib.experts[E].params = bad
+            post = [window(pool_post, q_post) for _ in range(n_post // W)]
+        finally:
+            lib.experts[E].params = orig
+        return pre, post, eng, stale
+
+    t0 = time.perf_counter()
+    pre_f, post_f, frozen, _ = timeline(adapt=False)
+    frozen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre_a, post_a, adapting, stale = timeline(adapt=True)
+    adapting_s = time.perf_counter() - t0
+    st = adapting.stats
+    before = float(np.mean([tolacc(ch, idx, q_pre) for _, ch, idx in post_f]))
+    frozen_post = float(np.mean([a for a, _, _ in post_f]))
+    adapted_post = float(np.mean([a for a, _, _ in post_a[-3:]]))
+    drop = before - frozen_post
+    recovered = (adapted_post - frozen_post) / drop if drop > 0 else None
+    check(st.adapt_updates == st.router_version == adapting.router_version
+          > 0, f"drift: {st.adapt_updates} updates, version "
+               f"{st.router_version}")
+    check(not any(stale), f"drift: stale cache versions after a swap {stale}")
+    # the first window is routed in one admission batch, before any
+    # feedback: the two engines must decide it identically
+    check(np.array_equal(pre_f[0][1], pre_a[0][1]),
+          "drift: frozen and adapting engines differ before the first "
+          "update")
+    check(frozen.stats.adapt_updates == 0, "drift: the frozen engine adapted")
+
+    # one "head" and one "all" step on the card and on a CPU copy of the
+    # trained router, from one replay batch
+    toks, eidx, obs = adapting.replay.sample(32, np.random.default_rng(1))
+    steps = {}
+    for trainable, tol in (("head", ADAPT_HEAD_TOL), ("all", ADAPT_ALL_TOL)):
+        step = make_router_update_step(rc, lr=0.1, trainable=trainable)
+        new_g, loss_g = step(rp, torch.from_numpy(toks).cuda(), eidx, obs)
+        rp_cpu = copy.deepcopy(rp).cpu()
+        new_c, loss_c = step(rp_cpu, torch.from_numpy(toks), eidx, obs)
+        errs = leaf_errors(new_g, new_c)
+        worst = max(errs.values())
+        check(worst <= tol, f"adapt step {trainable!r} card vs CPU: "
+                            f"{max(errs, key=errs.get)} {worst}")
+        steps[trainable] = {"loss": [float(loss_g), float(loss_c)],
+                            "worst_leaf_rel_err": worst, "tolerance": tol}
+    out = {"regressed_expert": names[E],
+           "shift_domains": [DOMAINS[d] for d in D],
+           "window": W, "pre_windows": n_pre // W,
+           "post_windows": n_post // W,
+           "frozen_acc": {"pre": [a for a, _, _ in pre_f],
+                          "post": [a for a, _, _ in post_f]},
+           "adapted_acc": {"pre": [a for a, _, _ in pre_a],
+                           "post": [a for a, _, _ in post_a]},
+           "before_acc": before, "frozen_post_acc": frozen_post,
+           "adapted_post_acc": adapted_post, "recovered_frac": recovered,
+           "updates": st.adapt_updates, "router_version": st.router_version,
+           "feedback_events": st.feedback_events,
+           "adapt_time_s": st.adapt_time_s,
+           "adapt_ms_per_update": st.adapt_time_s * 1e3 / st.adapt_updates,
+           "pre_err": st.adapt_pre_err, "post_err": st.adapt_post_err,
+           "wall_s": {"frozen": frozen_s, "adapting": adapting_s},
+           "card_vs_cpu_step": steps}
+    emit("adapt_path", **out)
+    return out
+
+
 # -------------------------------------------------------------- phase 5
 
 def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
@@ -1128,7 +1555,8 @@ def profiled_ms(torch, fn, kernel: str, iters=50):
     return ms or None
 
 
-def times_phase(torch, launches_per_run: dict, err: dict) -> list:
+def times_phase(torch, launches_per_run: dict, err: dict,
+                bwd_per_step: int) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mlstm_scan import ops as ml_ops
@@ -1182,6 +1610,36 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
                     - fa_ops.attention_plain(q, k, v, causal=False))
                     .abs().max())))
         (rows if i == 0 else extra).append(case)
+    # the attention backward at the largest expert's shape, then the
+    # specialists' and the router's; SDPA's backward is the library call
+    for i, (Bq, H, hd) in enumerate(((16, 8, 32), (16, 4, 40), (32, 4, 32))):
+        q, k, v, do = attn_grad_inputs(torch, Bq, 128, 128, H, H, hd, hd)
+        _, lse = fa_ops._forward(q, k, v, False, 0, 0.0, True)
+        qh, kh, vh = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        with torch.enable_grad():
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+        doh = do.transpose(1, 2).contiguous()
+        case = ("flash_attention_bwd",
+                (lambda q=q, k=k, v=v, lse=lse, do=do:
+                 fa_ops.flash_attention_bwd(q, k, v, lse, do,
+                                            causal=False)),
+                (lambda q=q, k=k, v=v, do=do:
+                 fa_ops.attention_grad_plain(q, k, v, do, causal=False)),
+                (lambda oh=oh, qh=qh, kh=kh, vh=vh, doh=doh:
+                 torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                     retain_graph=True)),
+                # q, k, v, dO and the log-sum-exp read; dQ, dK, dV written
+                7 * 4 * Bq * 128 * H * hd + 4 * Bq * H * 128,
+                10 * Bq * H * 128 * 128 * hd,
+                {"B": Bq, "H": H, "S": 128, "hd": hd, "causal": False},
+                (lambda q=q, k=k, v=v, do=do, oh=oh, qh=qh, kh=kh, vh=vh,
+                 doh=doh: max(float((a.transpose(1, 2) - w).abs().max())
+                              for a, w in zip(torch.autograd.grad(
+                                  oh, (qh, kh, vh), doh, retain_graph=True),
+                                  fa_ops.attention_grad_plain(
+                                      q, k, v, do, causal=False)))))
+        (rows if i == 0 else extra).append(case)
     kernels, extra_out = [], []
     for n, (name, kern, plain, libcall, nbytes, flops, shape,
             lib_err) in enumerate(rows + extra):
@@ -1200,6 +1658,8 @@ def times_phase(torch, launches_per_run: dict, err: dict) -> list:
         if name in TENSOR_CORE:
             entry["bound_tc_ms"], entry["bound_tc_by"] = bound_ms(
                 nbytes, 3 * flops, TF32_TC_FLOPS_PER_S)
+        if name == "flash_attention_bwd":
+            entry["launches_per_expert_step"] = bwd_per_step
         if libcall is not None:
             # the library call's own kernels, device time and error
             lib_k = profiled_kernels(torch, libcall)
@@ -1300,10 +1760,16 @@ def main() -> int:
     serve_path_phase(torch, setup, run_res, main, info["nvidia_smi"])
     xlstm, corpus = xlstm_serve_phase(torch)
     xlstm_crosscheck_phase(torch, corpus)
+    err["flash_attention_bwd"] = attention_grad_phase(torch)
+    train = train_path_phase(torch)
+    adapt_path_phase(torch)
     # launches of each kernel in the run of the path that uses it
     path_launches = {n: main["launches"][n] for n in ROUTER_PATH}
     path_launches["mlstm_scan"] = xlstm["launches"]["mlstm_scan"]
-    kernels = times_phase(torch, path_launches, err)
+    path_launches["flash_attention_bwd"] = (
+        train["launches"]["flash_attention_bwd"])
+    kernels = times_phase(torch, path_launches, err,
+                          train["attention_bwd_per_expert_step"])
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items() if k != "shape"} for e in kernels]}),
         flush=True)

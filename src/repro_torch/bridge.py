@@ -16,6 +16,10 @@ structural:
   copy as they are;
 * a router tree's ``encoder``, ``head`` and optional ``unc``.
 
+``model_state`` and ``router_state`` map a tree, or a tree of its
+gradients, to the port's parameter names, so tests can hold gradients
+and trained weights leaf by leaf.
+
 Loading is strict: a missing or extra leaf, or a shape that differs,
 raises.
 """
@@ -122,12 +126,18 @@ def router_from_jax(tree: dict, rc: RouterConfig, device=None) -> Router:
     dev = resolve_device(device)
     router = Router(rc, torch.Generator().manual_seed(0),
                     uncertainty="unc" in tree)
+    _load(router, router_state(tree))
+    return router.to(dev)
+
+
+def router_state(tree: dict) -> dict:
+    """A JAX router tree (or a tree of its gradients) as the port's
+    ``Router.state_dict()`` names."""
     state = {f"encoder.{k}": v for k, v in model_state(tree["encoder"]).items()}
     for head in ("head", "unc"):
         if head in tree:
             state.update((f"{head}.{k}", v) for k, v in _flatten(tree[head]))
-    _load(router, state)
-    return router.to(dev)
+    return state
 
 
 def library_from_jax(library, device=None) -> ModelLibrary:

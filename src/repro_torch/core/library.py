@@ -24,7 +24,7 @@ def _enc(name, layers, d, heads, dff, vocab) -> ModelConfig:
         name=name, num_layers=layers, d_model=d,
         num_heads=heads, num_kv_heads=heads, d_ff=dff, vocab_size=vocab,
         attn=AttnConfig(rope_theta=10000.0, causal=False),
-        tie_embeddings=True, norm_kind="layernorm",
+        is_encoder=True, tie_embeddings=True, norm_kind="layernorm",
         act="gelu", dtype="float32")
 
 

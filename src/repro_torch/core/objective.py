@@ -55,6 +55,19 @@ def recency_constraint(library: ModelLibrary) -> Constraint:
     return Constraint("recency", 1.0 - library.recencies())
 
 
+def routing_scores(pred_losses, constraints: Sequence[Constraint],
+                   lambdas: Sequence[float]) -> np.ndarray:
+    """(..., n_models) combined routing loss L_R = L-hat + sum_j
+    lambda_j C_j, in the predictions' type."""
+    if len(constraints) != len(lambdas):
+        raise ValueError(f"{len(constraints)} constraints, "
+                         f"{len(lambdas)} lambdas")
+    score = np.asarray(pred_losses)
+    for c, lam in zip(constraints, lambdas):
+        score = score + lam * np.asarray(c.values, score.dtype)
+    return score
+
+
 def constraint_matrix(constraints: Sequence[Constraint],
                       n_models: int) -> np.ndarray:
     """Stack constraint value vectors into the (n_c, M) matrix the fused

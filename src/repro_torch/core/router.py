@@ -14,6 +14,7 @@ constant prior sigma = 1.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -43,7 +44,7 @@ class RouterConfig:
             num_heads=self.num_heads, num_kv_heads=self.num_heads,
             d_ff=self.d_ff, vocab_size=self.vocab_size,
             attn=AttnConfig(rope_theta=10000.0, causal=False),
-            tie_embeddings=True, norm_kind="layernorm",
+            is_encoder=True, tie_embeddings=True, norm_kind="layernorm",
             act="gelu", dtype="float32")
 
 
@@ -95,6 +96,30 @@ def init_router(rc: RouterConfig, seed: int = 0, uncertainty: bool = False,
     one)."""
     dev = resolve_device(device)
     return Router(rc, torch.Generator().manual_seed(seed), uncertainty).to(dev)
+
+
+def with_modules(router: Router, **modules) -> Router:
+    """A new ``Router`` that shares every submodule of ``router`` except
+    the ones given (``encoder``, ``head``, ``unc``): the counterpart of
+    ``{**params, "head": new_head}`` on the JAX package's dict trees.
+    ``router`` itself is left as it was."""
+    out = copy.copy(router)
+    out._modules = dict(router._modules)
+    for name, module in modules.items():
+        out.__dict__.pop(name, None)   # an absent head is a plain None
+        out._modules[name] = module
+    return out
+
+
+def add_uncertainty_head(router: Router, rc: RouterConfig,
+                         seed: int = 0) -> Router:
+    """Retrofit an uncertainty head onto a pre-cascade checkpoint: a
+    router sharing the encoder and loss head (so its loss predictions
+    are bit-identical) with a fresh ``unc`` head drawn from
+    ``torch.Generator(seed)`` on the CPU."""
+    dev = router.head["w1"].device
+    unc = _init_mlp_head(torch.Generator().manual_seed(seed), rc).to(dev)
+    return with_modules(router, unc=unc)
 
 
 def _pool(hidden, tokens):

@@ -3,7 +3,8 @@ JAX package on the port's path, each beside its plain PyTorch version.
 
   router_score/     fused routing head: scores + constraint add + argmin
   router_cascade/   the same plus uncertainty head and depth-1 escalation
-  flash_attention/  online-softmax attention (encoder attention)
+  flash_attention/  online-softmax attention (encoder attention) and its
+                    gradient
   mlstm_scan/       chunkwise mLSTM recurrence (xLSTM prefill)
 
 Sources live in ``csrc/``; ``build`` compiles them with nvcc into one

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
-           "mlstm_scan.cu", "launch_floor.cu")
+           "flash_attention_bwd.cu", "mlstm_scan.cu", "launch_floor.cu")
 HEADERS = ("common.cuh", "mma_tf32.cuh", "router_head.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -44,8 +44,14 @@ SIGNATURES = {
     # emb w1 b1 w2 b2 uw1 ub1 uw2 ub2 cvals lam ladder_pos
     # | pred sigma choice esc | B d hh M n_c threads k_groups | stream
     "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 7 + [_P],
-    # q k v | o | B S T H KV hd causal window | softcap scale | stream
-    "tryage_flash_attention": [_P] * 3 + [_P] + [_I] * 8 + [_F] * 2 + [_P],
+    # q k v | o lse (null: not written) | B S T H KV hd causal window
+    # | softcap scale | stream
+    "tryage_flash_attention": [_P] * 3 + [_P] * 2 + [_I] * 8 + [_F] * 2
+    + [_P],
+    # q k v dO lse | D lse_b (workspaces) dq dk dv | B S T H KV hd
+    # causal window | softcap scale | stream
+    "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 5 + [_I] * 8
+    + [_F] * 2 + [_P],
     # q k v i f C0 n0 m0 | h C1 n1 m1 work | B S H dh chunk | scale | stream
     "tryage_mlstm_scan": [_P] * 8 + [_P] * 5 + [_I] * 5 + [_F] + [_P],
     # grid threads | stream: an empty kernel, the launch floor
@@ -93,13 +99,14 @@ def refuse_grad(name: str, *tensors) -> None:
     """Raise when autograd would need a gradient through kernel ``name``.
 
     The kernels write their outputs through ctypes into fresh buffers
-    that carry no ``grad_fn``, and none has a backward yet: a loss
-    behind one would get no gradient and nothing would say so.  The
+    that carry no ``grad_fn``; only attention has a backward kernel
+    (``flash_attention``'s ``autograd.Function``).  For the others a
+    loss behind one would get no gradient and nothing would say so.  The
     plain versions (CPU tensors) stay differentiable."""
     import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet; call it under "
+            f"{name}: the CUDA kernel has no backward; call it under "
             f"torch.no_grad() or torch.inference_mode(), or detach its "
             f"inputs")
 

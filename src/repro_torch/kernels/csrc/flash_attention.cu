@@ -6,7 +6,10 @@
 // scale 1/sqrt(hd) applied to q, optional tanh softcap, causal and
 // sliding-window masks filled with NEG_INF (keys past T get -inf), and
 // the normaliser l clamped at 1e-30.  hd is a multiple of 8 up to 128
-// (one template instance per hd / 8); S and T are any length.
+// (one template instance per hd / 8); S and T are any length.  With a
+// non-null lse the kernel also writes each row's log-sum-exp
+// m + log(max(l, 1e-30)) (B, H, S), which the backward
+// (flash_attention_bwd.cu) recomputes P from; serving passes null.
 //
 // Bound on the H100: at the main path's shapes (S = T = 128, hd 32 or
 // 40) the operations (4 S T hd per head) outweigh the bytes on the f32
@@ -76,8 +79,8 @@ template <int KD>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int S, int T, int H, int KV, int causal, int window,
-                       float softcap, float scale) {
+                       float* __restrict__ lse, int S, int T, int H, int KV,
+                       int causal, int window, float softcap, float scale) {
   constexpr int HD = 8 * KD;
   constexpr int KS = HD + 4;            // padded K/V row
   constexpr int kTile = kBK * KS;
@@ -250,6 +253,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = r0 + g + 8 * r;
     if (row >= S) continue;
     const float denom = fmaxf(l_i[r], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * S + row] = m_i[r] + logf(denom);
     float* orow = ob + (size_t)row * q_stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < KD; ++n)
@@ -261,9 +266,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 namespace {
 
 template <int KD>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int S, int T, int H, int KV, int causal, int window, float softcap,
-           float scale, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int S, int T, int H, int KV, int causal,
+           int window, float softcap, float scale, cudaStream_t stream) {
   // two stages of K and V tiles, and q above hd 64
   const size_t smem = sizeof(float) * (8 * KD + 4) *
                       (2 * 2 * kBK + (KD > 8 ? kMaxWarps * 16 : 0));
@@ -274,15 +279,16 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   while (warps > 1 && (row_tiles + warps - 1) / warps < kSMs) warps /= 2;
   dim3 grid((S + 16 * warps - 1) / (16 * warps), B * H);
   flash_attention_kernel<KD><<<grid, 32 * warps, smem, stream>>>(
-      q, k, v, o, S, T, H, KV, causal, window, softcap, scale);
+      q, k, v, o, lse, S, T, H, KV, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int tryage_flash_attention(const float* q, const float* k,
-                                      const float* v, float* o, int B, int S,
-                                      int T, int H, int KV, int hd, int causal,
+                                      const float* v, float* o, float* lse,
+                                      int B, int S, int T, int H, int KV,
+                                      int hd, int causal,
                                       int window, float softcap, float scale,
                                       void* stream) {
   if (B <= 0 || S <= 0) return 0;
@@ -291,7 +297,8 @@ extern "C" int tryage_flash_attention(const float* q, const float* k,
   switch (hd / 8) {
 #define TRYAGE_HD(KD) \
   case KD:            \
-    return launch<KD>(q, k, v, o, B, S, T, H, KV, causal, window, softcap, scale, st);
+    return launch<KD>(q, k, v, o, lse, B, S, T, H, KV, causal, window, softcap, \
+                      scale, st);
     TRYAGE_HD(1) TRYAGE_HD(2) TRYAGE_HD(3) TRYAGE_HD(4)
     TRYAGE_HD(5) TRYAGE_HD(6) TRYAGE_HD(7) TRYAGE_HD(8)
     TRYAGE_HD(9) TRYAGE_HD(10) TRYAGE_HD(11) TRYAGE_HD(12)

@@ -10,6 +10,11 @@ runs ``attention_plain``.  The kernel reads the model layout directly
 and maps GQA heads by index, so neither the transpose to (BH, S, hd)
 nor the K/V repeat of the JAX wrapper touches device memory.
 
+``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
+which has no Pallas counterpart: the JAX package differentiates its XLA
+attention); ``flash_attention`` runs forward and backward kernels as one
+``torch.autograd.Function`` when an input requires grad.
+
 Bound on the H100: at the main path's shapes the f32 operations (4*S*T*hd
 per head, about 4 us for a router layer at B=32 on the CUDA cores); the
 kernel runs both products on the tensor cores in 3xTF32, which keeps
@@ -68,31 +73,115 @@ def _check(q, k, v):
         raise TypeError("flash_attention: q, k, v must be float32")
 
 
+def _kernel_inputs(*tensors):
+    # K and V are staged with 16-byte copies: 16-byte aligned inputs
+    return [t if t.data_ptr() % 16 == 0 else t.clone()
+            for t in (x.contiguous() for x in tensors)]
+
+
+def _check_head_dim(hd):
+    if hd > MAX_HEAD_DIM or hd % 8:
+        raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
+                         f"of 8 and at most {MAX_HEAD_DIM}")
+
+
+def _forward(q, k, v, causal, window, softcap, with_lse):
+    """Launch the forward kernel: (o, lse or None)."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    _check_head_dim(hd)
+    q, k, v = _kernel_inputs(q, k, v)
+    o = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    build.launch(
+        "tryage_flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
+        B, S, T, H, KV, hd, int(causal), int(window), float(softcap),
+        1.0 / math.sqrt(hd))
+    flash_attention.launches += 1
+    return o, lse
+
+
+def attention_grad_plain(q, k, v, do, *, causal=True, window=0, softcap=0.0):
+    """(dq, dk, dv) of ``attention_plain`` by torch autograd: the plain
+    version the backward kernel is held against."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_plain(*leaves, causal=causal, window=window,
+                              softcap=softcap)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
+                        softcap=0.0):
+    """(dq, dk, dv) of attention from the forward's log-sum-exp ``lse``
+    (B, H, S) and the output gradient ``do``: ``csrc/flash_attention_bwd.cu``
+    on CUDA tensors (one call, two launches: dQ, then dK and dV), the
+    plain version's autograd on CPU ones (``lse`` unused there)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_grad_plain(q, k, v, do, causal=causal,
+                                    window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if (do.shape != q.shape or do.dtype != torch.float32
+            or lse.shape != (B, H, S) or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    _check_head_dim(hd)
+    q, k, v, do, lse = _kernel_inputs(q, k, v, do, lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(2, B, H, S, dtype=torch.float32, device=q.device)
+    build.launch(
+        "tryage_flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+        S, T, H, KV, hd, int(causal), int(window), float(softcap),
+        1.0 / math.sqrt(hd))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel (keeping its log-sum-exp) and the backward
+    kernel as one differentiable op on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        o, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.masks = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, window, softcap = ctx.masks
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                         window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """Attention over (B, S, H, hd) queries and (B, T, KV, hd) keys and
-    values; the kernel on CUDA tensors, the plain version on CPU ones."""
+    values; the kernel on CUDA tensors, the plain version on CPU ones.
+    On CUDA tensors that need a gradient it runs as ``_FlashAttention``,
+    whose backward is ``flash_attention_bwd``; otherwise the forward
+    kernel alone, with no log-sum-exp written."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    build.refuse_grad("flash_attention", q, k, v)
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM or hd % 8:
-        raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
-                         f"of 8 and at most {MAX_HEAD_DIM}")
-    # K and V are staged with 16-byte copies: 16-byte aligned inputs
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
-    o = torch.empty_like(q)
-    build.launch(
-        "tryage_flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), B, S, T, H, KV, hd, int(causal),
-        int(window), float(softcap), 1.0 / math.sqrt(hd))
-    flash_attention.launches += 1
-    return o
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

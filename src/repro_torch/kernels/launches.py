@@ -12,6 +12,7 @@ WRAPPERS = {
     "router_score": rs_ops.router_score_fused,
     "router_cascade": rc_ops.router_score_cascade_fused,
     "flash_attention": fa_ops.flash_attention,
+    "flash_attention_bwd": fa_ops.flash_attention_bwd,
     "mlstm_scan": ml_ops.mlstm_chunkwise,
 }
 

@@ -56,6 +56,7 @@ class ModelConfig:
     # unit by unit, then the first num_layers % len(pattern) kinds
     layer_pattern: tuple = ("attn",)
     moe_pattern: tuple = (False,)  # same length as layer_pattern
+    is_encoder: bool = False      # bidirectional, MLM-style
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     norm_kind: str = "rmsnorm"    # rmsnorm | layernorm

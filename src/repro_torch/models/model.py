@@ -102,6 +102,37 @@ def encode(model: Model, batch):
     return forward(model, batch, mode="encode")
 
 
+# ------------------------------------------------------------- losses
+
+def cross_entropy(logits, targets, mask):
+    """Masked mean CE in f32. logits (B,S,V); targets (B,S); mask (B,S).
+    The mean is over ``max(sum(mask), 1)`` as in the reference."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    mask = mask.float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def lm_loss(model: Model, batch):
+    """Causal-LM (decoder) or MLM (encoder) loss. Returns (loss,
+    metrics).  No port config has MoE layers, so the loss is the CE
+    alone (the reference adds ``router_aux_weight * aux``, 0 here)."""
+    cfg = model.cfg
+    logits = forward(model, batch, mode="train")
+    if cfg.is_encoder:
+        ce = cross_entropy(logits, batch["targets"], batch["mask"])
+    else:
+        tokens = batch.get("targets")
+        if tokens is None:
+            tokens = batch["tokens"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(tokens)
+        ce = cross_entropy(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+
 def prefill(model: Model, batch):
     """(logits (B, S, V), per-layer states) over ``batch["tokens"]``."""
     return model(batch["tokens"], mode="prefill")

@@ -1,0 +1,99 @@
+"""AdamW over a module's parameters, as ``repro.optim.adamw`` computes it.
+
+Not ``torch.optim.AdamW``: the reference's update differs from it in
+ways a parity test sees.  The global-norm clip scales by
+``min(1, clip / max(gnorm, 1e-9))`` (``clip_grad_norm_`` uses
+``clip / (norm + 1e-6)``); weight decay is added to the Adam direction
+of every leaf, biases, norms and the tied embedding included, and
+scaled by the learning rate; the step count is incremented before the
+schedule and the bias corrections read it.  Moments are f32 whatever
+the parameter's type.
+
+Unlike the JAX function, ``adamw_update`` writes the new parameters and
+moments in place (a full copy of the weights a step would cost memory
+for nothing); it returns the module and the new ``OptState``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class OptState:
+    step: int
+    mu: dict                 # parameter name -> f32 first moment
+    nu: dict                 # parameter name -> f32 second moment
+
+
+def adamw_init(params: nn.Module) -> OptState:
+    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in params.named_parameters()}
+    return OptState(step=0, mu=zeros,
+                    nu={n: z.clone() for n, z in zeros.items()})
+
+
+@torch.no_grad()
+def adamw_update(params: nn.Module, grads: dict, state: OptState, *, lr,
+                 b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-5,
+                 grad_clip=1.0):
+    """One AdamW step on ``params`` (in place) from ``grads`` (name ->
+    gradient, e.g. ``grads_of(params)``).  ``lr`` may be a float or a
+    schedule fn(step) -> float.  Returns (params, new state)."""
+    step = state.step + 1
+    lr_t = float(lr(step)) if callable(lr) else lr
+    named = list(params.named_parameters())
+    gs = [grads[n] for n, _ in named]
+    if grad_clip and grad_clip > 0:
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+        scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-9), max=1.0)
+        gs = [g * scale.to(g.dtype) for g in gs]
+    c1, c2 = 1 - b1 ** step, 1 - b2 ** step
+    for (n, p), g in zip(named, gs):
+        g32 = g.float()
+        m, v = state.mu[n], state.nu[n]
+        m.mul_(b1).add_(g32, alpha=1 - b1)
+        v.mul_(b2).add_(g32.square(), alpha=1 - b2)
+        p32 = p.float()
+        delta = (m / c1) / ((v / c2).sqrt() + eps) + weight_decay * p32
+        p.copy_((p32 - lr_t * delta).to(p.dtype))
+    return params, OptState(step=step, mu=state.mu, nu=state.nu)
+
+
+def grads_of(params: nn.Module) -> dict:
+    """Name -> ``.grad`` of every parameter (zeros where autograd left
+    none, as ``jax.grad`` returns zeros for an unused leaf)."""
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for n, p in params.named_parameters()}
+
+
+def exp_decay_schedule(base_lr: float, decay: float,
+                       steps_per_decay: int) -> Callable:
+    def fn(step):
+        return base_lr * decay ** (step / steps_per_decay)
+    return fn
+
+
+def cosine_schedule(base_lr: float, total_steps: int,
+                    min_frac=0.1) -> Callable:
+    def fn(step):
+        t = min(max(step / total_steps, 0.0), 1.0)
+        return base_lr * (min_frac + (1 - min_frac) * 0.5
+                          * (1 + math.cos(math.pi * t)))
+    return fn
+
+
+def warmup_cosine_schedule(base_lr: float, warmup: int, total_steps: int,
+                           min_frac=0.0) -> Callable:
+    cos = cosine_schedule(base_lr, max(total_steps - warmup, 1), min_frac)
+
+    def fn(step):
+        if step < warmup:
+            return base_lr * min(max(step / max(warmup, 1), 0.0), 1.0)
+        return cos(step - warmup)
+    return fn

@@ -133,3 +133,16 @@ class DecisionCache:
         self._entries.move_to_end(key)
         while len(self._entries) > self.capacity:
             self._entries.popitem(last=False)
+
+    def stale_versions(self, live_version: int) -> set[int]:
+        """Router versions present in stored keys that differ from the
+        live one (the version is the key's last element).  Empty means
+        the engine's post-swap invariant holds — every surviving entry
+        was scored by the live snapshot."""
+        return {k[-1] for k in self._entries} - {int(live_version)}
+
+    def clear(self) -> None:
+        """Drop every entry (memory reclaim after a router-version bump;
+        the version in the key already guarantees stale entries cannot
+        hit)."""
+        self._entries.clear()

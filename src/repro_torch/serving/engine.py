@@ -35,8 +35,15 @@ cache hashes those bytes, identically to the JAX engine); tensors move
 to the engine's device only inside the engine.  Expert micro-batches are
 padded to power-of-two buckets (``buckets=True``).
 
-Not ported yet: the T2/T3 cache tiers, mesh placement and online
-adaptation.  Their knobs are absent from the constructor.
+Online adaptation: every ``adapt_every`` feedback samples the Feedback
+stage replays a batch from the replay buffer through
+``core.training.make_router_update_step`` on shadow weights (outside
+``inference_mode``, with grad on), and the new router is published with
+``VersionedParams.swap``: the version in every decision-cache key moves
+on, and the cache is cleared.
+
+Not ported yet: the T2/T3 cache tiers and mesh placement.  Their knobs
+are absent from the constructor.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ from repro_torch.core.objective import (Constraint, cascade_choice,
                                         escalation_order, fallback_choice)
 from repro_torch.core.router import (RouterConfig, VersionedParams,
                                      predict_uncertainty, router_embed)
+from repro_torch.core.training import (make_router_update_step,
+                                       router_prediction_error)
 from repro_torch.device import module_device, resolve_device
 from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
@@ -77,10 +86,9 @@ def bucket_size(n: int) -> int:
 @dataclasses.dataclass
 class EngineStats:
     """The JAX engine's telemetry, field for field, as far as the port
-    fills it.  ``cache_tier_hits``, ``cache_revalidations*``,
-    ``adapt_updates`` and ``router_version`` belong to features not
-    ported yet (the T2/T3 cache tiers, online adaptation); they stay at
-    zero, as on a JAX engine with those features off, so that
+    fills it.  ``cache_tier_hits`` and ``cache_revalidations*`` belong
+    to the T2/T3 cache tiers, not ported yet; they stay at zero, as on
+    a JAX engine with those tiers off, so that
     ``serving.metrics.render`` reads the same series from both."""
 
     served: int = 0
@@ -125,12 +133,19 @@ class EngineStats:
     # launch geometry of each decision kernel per padded batch size:
     # {kernel: {Bp: plan}}
     router_tiles: dict = dataclasses.field(default_factory=dict)
+    # online adaptation: router updates applied (and the resulting
+    # router version), feedback samples published, replay occupancy,
+    # time spent in update steps, and the mean |L-hat[chosen] -
+    # L_observed| on the last replayed batch before and after its update
     adapt_updates: int = 0
     router_version: int = 0
     feedback_events: int = 0
     feedback_dropped: int = 0
     replay_len: int = 0
     replay_cap: int = 0
+    adapt_time_s: float = 0.0
+    adapt_pre_err: float = 0.0
+    adapt_post_err: float = 0.0
     # front end: sessions multiplexed, requests admitted through the
     # bounded queue, load-shed requests (total and per priority), and
     # the queue's peak occupancy
@@ -210,10 +225,16 @@ class EngineStats:
                     name: {int(b): dict(plan) for b, plan in
                            sorted(tiles.items())}
                     for name, tiles in sorted(self.router_tiles.items())},
-                "feedback": {"events": self.feedback_events,
-                             "dropped": self.feedback_dropped,
-                             "replay": {"len": self.replay_len,
-                                        "cap": self.replay_cap}},
+                "adaptation": {
+                    "updates": self.adapt_updates,
+                    "router_version": self.router_version,
+                    "feedback_events": self.feedback_events,
+                    "feedback_dropped": self.feedback_dropped,
+                    "replay": {"len": self.replay_len,
+                               "cap": self.replay_cap},
+                    "pre_err": round(self.adapt_pre_err, 6),
+                    "post_err": round(self.adapt_post_err, 6),
+                    "time_s": round(self.adapt_time_s, 3)},
                 "frontend": {
                     "sessions": self.sessions,
                     "admitted": self.admitted,
@@ -264,6 +285,12 @@ class TryageEngine:
     - ``health``: an ``ExpertHealth`` over the library (None: the
       Fallback stage is a strict no-op); ``fallback_max_depth``: bound
       on route-time fallback re-selections per request.
+    - ``adapt_every``: feedback samples between router updates; 0 (the
+      default) freezes the router.  ``adapt_lr`` / ``adapt_ema`` /
+      ``adapt_batch`` / ``adapt_trainable``: the update recipe
+      (``core.training.make_router_update_step``; ``"head"`` adapts the
+      loss head only, ``"all"`` also the encoder); ``adapt_seed`` seeds
+      the replay sampling.
     - ``replay_cap``: feedback replay-buffer capacity (0 disables it).
     - ``now_fn``: engine clock (injectable for deterministic tests).
     """
@@ -276,7 +303,10 @@ class TryageEngine:
                  lane_target: int | None = None, max_wait_s: float = 0.05,
                  speculate: bool = False,
                  health: ExpertHealth | None = None,
-                 fallback_max_depth: int = 2, replay_cap: int = 4096,
+                 fallback_max_depth: int = 2, adapt_every: int = 0,
+                 adapt_lr: float = 1e-2, adapt_ema: float = 0.0,
+                 adapt_batch: int = 32, adapt_trainable: str = "head",
+                 replay_cap: int = 4096, adapt_seed: int = 0,
                  now_fn: Callable[[], float] = time.monotonic,
                  device=None):
         if len(library) != rc.n_models:
@@ -321,7 +351,20 @@ class TryageEngine:
         self._now = now_fn
         self.queue: list[Request] = []
         self.stats = EngineStats()
+        if adapt_every < 0 or adapt_batch < 1:
+            raise ValueError("adapt_every must be >= 0 and "
+                             "adapt_batch >= 1")
+        if adapt_every > 0 and replay_cap <= 0:
+            raise ValueError("adapt_every > 0 needs a replay buffer "
+                             "(replay_cap >= 1)")
+        self.adapt_every = adapt_every
+        self.adapt_batch = adapt_batch
         self.replay = ReplayBuffer(replay_cap) if replay_cap > 0 else None
+        self._adapt_rng = np.random.default_rng(adapt_seed)
+        self._fb_at_last_update = 0
+        self._update_step = (make_router_update_step(
+            rc, lr=adapt_lr, ema=adapt_ema, trainable=adapt_trainable)
+            if adapt_every > 0 else None)
         self.pipeline = ServingPipeline(self)
         self._cnames = [c.name for c in self.constraints]
         self._cmat = constraint_matrix(self.constraints, rc.n_models)
@@ -494,6 +537,63 @@ class TryageEngine:
             else:
                 final[i], depth[i], conf[i] = e1, 1, confm[i, e1]
         return final, depth, conf
+
+    # ------------------------------------------------ online adaptation
+
+    def _maybe_adapt(self):
+        """Feedback-cadenced router refresh (called by the Feedback
+        stage after each flush).
+
+        One incremental update per ``adapt_every`` published feedback
+        samples: a flush that publishes several multiples of
+        ``adapt_every`` at once applies every update it owes.  Each
+        update replays a fresh batch, steps shadow weights, reads the
+        batch prediction error before and after in one sync, and
+        publishes the new snapshot with a version-bumping swap; the
+        decision cache is cleared on swap (the version in the key
+        already makes stale verdicts unreachable; clearing reclaims
+        their memory).  Runs with grad on: the engine's card methods
+        run under ``inference_mode``, this one must not."""
+        if self.adapt_every <= 0 or self.replay is None:
+            return
+        while (self.replay.seen - self._fb_at_last_update
+               >= self.adapt_every):
+            self._fb_at_last_update += self.adapt_every
+            t0 = self._now()
+            toks, eidx, obs = self.replay.sample(self.adapt_batch,
+                                                 self._adapt_rng)
+            dt, de, do = (self._to_device(a) for a in (toks, eidx, obs))
+            old = self.router_params
+            with torch.no_grad():
+                pre = router_prediction_error(old, self.rc, dt, de, do)
+            new_params, _ = self._update_step(old, dt, de, do)
+            with torch.no_grad():
+                post = router_prediction_error(new_params, self.rc, dt,
+                                               de, do)
+            errs = torch.stack([pre, post]).cpu().numpy()  # one sync
+            self._router = self._router.swap(new_params)
+            if self.cache is not None:
+                self.cache.clear()
+            self._assert_cache_version()
+            self.stats.adapt_updates += 1
+            self.stats.router_version = self._router.version
+            self.stats.adapt_pre_err = float(errs[0])
+            self.stats.adapt_post_err = float(errs[1])
+            self.stats.adapt_time_s += self._now() - t0
+
+    def _assert_cache_version(self):
+        """Invariant checked after every swap: no surviving
+        decision-cache entry may carry a router version other than the
+        live snapshot's — a stale hit would serve verdicts scored by
+        superseded parameters."""
+        if self.cache is None:
+            return
+        stale = self.cache.stale_versions(self._router.version)
+        if stale:
+            raise RuntimeError(
+                f"decision cache holds entries for router version(s) "
+                f"{sorted(stale)} but version {self._router.version} is "
+                f"live")
 
     # --------------------------------------------------- expert executor
 

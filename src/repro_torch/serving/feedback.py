@@ -4,9 +4,9 @@ draws on.
 Expert execution measures, for every request that carries MLM targets,
 the observed masked NLL of the expert that served it: a (prompt,
 expert, loss) sample of the Q function the router learns.  The
-pipeline's Feedback stage publishes each sample here.  The adaptation
-loop that replays them comes with a later slice of the port; until then
-the buffer collects and its occupancy is reported in ``EngineStats``.
+pipeline's Feedback stage publishes each sample here, and the engine's
+adaptation loop (``TryageEngine._maybe_adapt``) replays uniform batches
+of them through ``core.training.make_router_update_step``.
 
 * **Bounded ring.**  The buffer keeps the most recent ``capacity``
   samples and drops the oldest, so its composition tracks the traffic.
@@ -57,3 +57,14 @@ class ReplayBuffer:
             self._losses[self._head] = float(observed_loss)
             self._head = (self._head + 1) % self.capacity
         return True
+
+    def sample(self, batch: int, rng: np.random.Generator,
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Uniform batch with replacement: ``(tokens (B, S) int,
+        expert_idx (B,) int32, observed_loss (B,) float32)``."""
+        if not self._tokens:
+            raise ValueError("cannot sample an empty replay buffer")
+        idx = rng.integers(0, len(self), size=batch)
+        return (np.stack([self._tokens[i] for i in idx]),
+                np.array([self._experts[i] for i in idx], np.int32),
+                np.array([self._losses[i] for i in idx], np.float32))

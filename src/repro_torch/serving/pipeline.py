@@ -232,9 +232,10 @@ class ExecuteStage:
 
 
 class FeedbackStage:
-    """Publish each observed (prompt, expert, loss) sample to the replay
-    buffer.  Router adaptation from it is not ported yet, so the buffer
-    only collects."""
+    """Close the loop: publish each observed (prompt, expert, loss)
+    sample to the replay buffer and let the adaptation loop refresh the
+    router (``engine._maybe_adapt``, a no-op unless the engine was built
+    with ``adapt_every > 0``)."""
 
     def __init__(self, engine: "TryageEngine"):
         self.eng = engine
@@ -250,6 +251,7 @@ class FeedbackStage:
         eng.stats.feedback_dropped = eng.replay.dropped
         eng.stats.replay_len = len(eng.replay)
         eng.stats.replay_cap = eng.replay.capacity
+        eng._maybe_adapt()
         return ctx
 
 

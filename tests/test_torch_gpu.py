@@ -17,9 +17,13 @@ magnitude (f32 sums over up to 1024 terms in another order, then h
 divides by a running denominator);
 the xLSTM on the card against the CPU: logits atol=rtol=1e-4 and the
 same greedy tokens; ``serve()`` on the card against the CPU: the same
-expert and depth per uid, NLL atol=rtol=1e-4.  No kernel has a backward
-yet, so each wrapper refuses a CUDA input that requires grad under
-grad mode.
+expert and depth per uid, NLL atol=rtol=1e-4.  Attention has a backward
+kernel: dQ, dK and dV within 1e-4 of each gradient's largest magnitude
+against torch autograd of the plain version, bit-identical on a rerun;
+one expert training step on the card against the CPU: loss to rtol
+1e-4, weights within 1e-4 of each leaf's largest magnitude.  The other
+kernels have none, so their wrappers refuse a CUDA input that requires
+grad under grad mode.
 """
 
 import copy
@@ -357,17 +361,84 @@ def _grad_cases():
 @pytest.mark.parametrize("name", ["flash_attention", "mlstm_chunkwise",
                                   "router_score", "router_cascade"])
 def test_wrappers_refuse_grad_on_the_card(name):
-    """No kernel has a backward: under grad mode a CUDA input that
-    requires grad raises instead of silently dropping the gradient;
-    under ``no_grad`` (and with no such input) the kernel launches."""
+    """Only attention has a backward kernel: its output carries a
+    gradient, computed by that kernel (held to the plain version by
+    ``test_flash_attention_backward_matches_plain``).  The others, under
+    grad mode with a CUDA input that requires grad, raise instead of
+    silently dropping the gradient; under ``no_grad`` (and with no such
+    input) every kernel launches."""
     _card()
     call = _grad_cases()[name]
-    with pytest.raises(RuntimeError, match="no backward"):
-        call(True)
+    if name == "flash_attention":
+        out = call(True)
+        assert out.grad_fn is not None
+        before = fa_ops.flash_attention_bwd.launches
+        out.sum().backward()
+        assert fa_ops.flash_attention_bwd.launches == before + 1
+    else:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(True)
     with torch.no_grad():
         call(True)
     call(False)
     torch.cuda.synchronize()
+
+
+BWD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
+    (16, 128, 128, 8, 8, 32, False, 0, 0.0),   # roberta-analog
+    (16, 128, 128, 4, 4, 40, False, 0, 0.0),   # d=160 specialists
+    (32, 128, 128, 4, 4, 32, False, 0, 0.0),   # router, adaptation
+    (2, 77, 77, 4, 2, 16, True, 0, 0.0),
+    (2, 50, 50, 4, 4, 24, True, 9, 0.0),
+    (2, 64, 64, 6, 2, 32, False, 0, 5.0),
+    (1, 40, 40, 2, 1, 128, True, 7, 3.0),
+    (1, 20, 8, 2, 2, 8, False, 3, 0.0),        # rows with no key
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window,softcap", BWD_CASES)
+def test_flash_attention_backward_matches_plain(B, S, T, H, KV, hd, causal,
+                                                window, softcap):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(S * hd)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    q, k, v, do = r(B, S, H, hd), r(B, T, KV, hd), r(B, T, KV, hd), \
+        r(B, S, H, hd)
+    masks = dict(causal=causal, window=window, softcap=softcap)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa_ops.flash_attention(*leaves, **masks),
+                              leaves, do)
+    again = torch.autograd.grad(fa_ops.flash_attention(*leaves, **masks),
+                                leaves, do)
+    want = fa_ops.attention_grad_plain(q, k, v, do, **masks)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_expert_step_on_card_matches_cpu():
+    """One training step of an expert (forward, MLM loss, backward
+    through both attention kernels, AdamW) on the card and on the CPU
+    from the same weights and batch."""
+    _card()
+    from repro_torch.core.training import expert_step, to_device
+    from repro_torch.optim import adamw_init
+    cfg = _enc("t", 2, 64, 2, 128, 64)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(0)
+    batch = mlm_batch(rng.integers(4, 64, size=(8, 32)).astype(np.int32),
+                      rng, 0.2, 64)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        _, loss = expert_step(model, adamw_init(model), to_device(batch, dev),
+                              lr=1e-3)
+        losses.append(float(loss))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    for (n, a), (_, b) in zip(cpu.named_parameters(), gpu.named_parameters()):
+        err = float((b.detach().cpu() - a.detach()).abs().max())
+        assert err <= 1e-4 * float(a.detach().abs().max()), n
 
 
 def test_serve_on_card_matches_cpu():

@@ -52,7 +52,10 @@ def test_every_module_imports_without_jax_or_repro():
     names = out.stdout.split()
     assert len(names) >= 20
     for mod in ("configs.xlstm_13b", "launch.steps", "models.ssm",
-                "models.scan_utils", "kernels.mlstm_scan.ops"):
+                "models.scan_utils", "kernels.mlstm_scan.ops",
+                "optim.adamw", "core.training", "core.qtable",
+                "core.baselines", "core.pareto", "core.experiment",
+                "core.e2e"):
         assert f"repro_torch.{mod}" in names, mod
 
 
