@@ -28,8 +28,10 @@ just before it and read just after:
   full width on the card and on the CPU and compares them, and holds
   decode against a longer prefill for the whole config in f32;
 * ``attention_grad``: the attention backward kernel against torch
-  autograd of the plain version at the training shapes and small
-  causal, window, softcap and GQA cases, and a bit-identical rerun;
+  autograd of the plain version at the training shapes, small causal,
+  window, softcap and GQA cases, both sides of the switch between its
+  one-launch and two-launch paths (128 keys), hd 128 and a long causal
+  window, and a bit-identical rerun;
 * ``train_path``: the paper's experiment pipeline (``run_experiment``
   with the default ``ExperimentConfig``: 11 experts of
   ``paper_library_specs(vocab=512)`` trained 300 MLM steps each, the
@@ -51,8 +53,9 @@ failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or outside a checkout, it exits non-zero at once.
 
 TF32 is off throughout for PyTorch's own products (it flips near-tie
-argmins); the attention and mLSTM kernels run theirs on the tensor
-cores in 3xTF32, which keeps f32 accuracy.  Times: CUDA events over
+argmins); the attention kernels (forward and backward) and the mLSTM
+scan run theirs on the tensor cores in 3xTF32, which keeps f32
+accuracy.  Times: CUDA events over
 back-to-back calls after a warm-up, and the profiler's device time per
 kernel.  Bounds: the larger of the bytes each call must move over 3.35
 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM data sheet); for
@@ -114,6 +117,13 @@ ATTN_GRAD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
     (2, 64, 64, 6, 2, 32, False, 0, 5.0),
     (1, 40, 40, 2, 1, 128, True, 7, 3.0),
     (1, 20, 8, 2, 2, 8, False, 3, 0.0),        # rows that see no key
+    # the backward's two paths meet at 128 keys: one launch up to it,
+    # two launches (row sums and dQ, then dK/dV) past it
+    (2, 96, 128, 4, 2, 40, False, 0, 0.0),
+    (2, 96, 129, 4, 2, 40, False, 0, 2.0),
+    (2, 128, 128, 4, 4, 128, False, 0, 0.0),   # hd 128, one launch
+    (1, 300, 300, 2, 1, 64, True, 64, 0.0),    # long T, causal window
+    (1, 300, 140, 2, 2, 8, False, 3, 0.0),     # long T, rows with no key
 ]
 # training card vs CPU from the same weights: 3 steps' losses and the
 # first step's gradients to this relative error (the weights after 3 Adam
@@ -157,7 +167,7 @@ SOURCES = {
 }
 ROUTER_PATH = ("router_score", "router_cascade", "flash_attention")
 # kernels whose products run on the tensor cores (3xTF32)
-TENSOR_CORE = ("flash_attention", "mlstm_scan")
+TENSOR_CORE = ("flash_attention", "flash_attention_bwd", "mlstm_scan")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1099,8 +1109,9 @@ def attn_grad_inputs(torch, B, S, T, H, KV, hd, seed):
 
 def attention_grad_phase(torch) -> float:
     """The backward kernel's dQ, dK, dV against torch autograd of the
-    plain version, at the training shapes and small causal, window,
-    softcap and GQA cases; a rerun must give bit-identical gradients.
+    plain version, at the training shapes, small causal, window, softcap
+    and GQA cases, and both sides of the switch between its one-launch
+    and two-launch paths; a rerun must give bit-identical gradients.
     Returns the largest max abs error."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     cases, worst = [], 0.0
@@ -1112,7 +1123,8 @@ def attention_grad_phase(torch) -> float:
         again = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
         want = fa_ops.attention_grad_plain(q, k, v, do, **masks)
         torch.cuda.synchronize()
-        case = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, **masks}
+        case = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, **masks,
+                "kernel_launches": 1 if T <= fa_ops.BLOCK_KEYS else 2}
         for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
             e, scale = float((a - w).abs().max()), float(w.abs().max())
             check(bool(torch.isfinite(a).all())

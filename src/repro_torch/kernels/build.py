@@ -48,9 +48,9 @@ SIGNATURES = {
     # | softcap scale | stream
     "tryage_flash_attention": [_P] * 3 + [_P] * 2 + [_I] * 8 + [_F] * 2
     + [_P],
-    # q k v dO lse | D lse_b (workspaces) dq dk dv | B S T H KV hd
-    # causal window | softcap scale | stream
-    "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 5 + [_I] * 8
+    # q k v dO lse | rows (workspace, null up to 128 keys) dq dk dv
+    # | B S T H KV hd causal window | softcap scale | stream
+    "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 4 + [_I] * 8
     + [_F] * 2 + [_P],
     # q k v i f C0 n0 m0 | h C1 n1 m1 work | B S H dh chunk | scale | stream
     "tryage_mlstm_scan": [_P] * 8 + [_P] * 5 + [_I] * 5 + [_F] + [_P],

@@ -1,6 +1,6 @@
 // Device helpers shared by the tensor-core kernels (flash_attention.cu,
-// mlstm_scan.cu): f32-exact products on the TF32 tensor cores (3xTF32),
-// and cp.async staging.
+// flash_attention_bwd.cu, mlstm_scan.cu): f32-exact products on the TF32
+// tensor cores (3xTF32), and cp.async staging.
 //
 // 3xTF32: an f32 operand x is split into big = tf32(x) and
 // small = tf32(x - big), each rounded as cvt.rna.tf32.f32 rounds (to
@@ -37,6 +37,17 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ Split split_tf32(float x) {
   const uint32_t big = to_tf32(x);
   return {big, to_tf32(x - __uint_as_float(big))};
+}
+
+// The same split with small left as the f32 difference x - big: the
+// tensor cores read a TF32 operand's top 19 bits and drop the rest, so
+// they truncate small themselves, two integer operations fewer per
+// operand.  Truncated, small's error is below 2^-22 of |x|, against 2^-23
+// rounded, far below the f32 gates (tests/test_torch_tf32.py emulates
+// both).
+__device__ __forceinline__ Split split_tf32_rz(float x) {
+  const uint32_t big = to_tf32(x);
+  return {big, __float_as_uint(x - __uint_as_float(big))};
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
@@ -85,6 +96,23 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// The same for 4 and 8 bytes (through L1: .cg takes 16 bytes only).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 8 : 0)
                : "memory");
 }
 

@@ -12,8 +12,9 @@ nor the K/V repeat of the JAX wrapper touches device memory.
 
 ``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
 which has no Pallas counterpart: the JAX package differentiates its XLA
-attention); ``flash_attention`` runs forward and backward kernels as one
-``torch.autograd.Function`` when an input requires grad.
+attention; all five products in 3xTF32, one launch up to ``BLOCK_KEYS``
+keys, two above); ``flash_attention`` runs forward and backward kernels
+as one ``torch.autograd.Function`` when an input requires grad.
 
 Bound on the H100: at the main path's shapes the f32 operations (4*S*T*hd
 per head, about 4 us for a router layer at B=32 on the CUDA cores); the
@@ -33,6 +34,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.3819763e38  # the Pallas kernel's mask fill
 MAX_HEAD_DIM = 128
+# keys of one block of the backward kernel (csrc/flash_attention_bwd.cu
+# kBlockKeys): up to this many keys it runs as one launch; above, a
+# first launch writes each row's sums to a (B, H, S, 2) workspace
+BLOCK_KEYS = 128
 
 
 def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -74,9 +79,11 @@ def _check(q, k, v):
 
 
 def _kernel_inputs(*tensors):
-    # K and V are staged with 16-byte copies: 16-byte aligned inputs
-    return [t if t.data_ptr() % 16 == 0 else t.clone()
-            for t in (x.contiguous() for x in tensors)]
+    # the kernels stage rows with 16-byte copies: contiguous, 16-byte
+    # aligned inputs; those that already are go through untouched
+    return [t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format)
+            for t in tensors]
 
 
 def _check_head_dim(hd):
@@ -117,8 +124,9 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
                         softcap=0.0):
     """(dq, dk, dv) of attention from the forward's log-sum-exp ``lse``
     (B, H, S) and the output gradient ``do``: ``csrc/flash_attention_bwd.cu``
-    on CUDA tensors (one call, two launches: dQ, then dK and dV), the
-    plain version's autograd on CPU ones (``lse`` unused there)."""
+    on CUDA tensors (one launch up to ``BLOCK_KEYS`` keys; above, a
+    first launch for the row sums and dQ, then dK and dV), the plain
+    version's autograd on CPU ones (``lse`` unused there)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_grad_plain(q, k, v, do, causal=causal,
@@ -135,13 +143,14 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
     _check_head_dim(hd)
     q, k, v, do, lse = _kernel_inputs(q, k, v, do, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(2, B, H, S, dtype=torch.float32, device=q.device)
+    rows = (torch.empty(B, H, S, 2, dtype=torch.float32, device=q.device)
+            if T > BLOCK_KEYS else None)
     build.launch(
         "tryage_flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-        S, T, H, KV, hd, int(causal), int(window), float(softcap),
-        1.0 / math.sqrt(hd))
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        None if rows is None else rows.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, hd, int(causal),
+        int(window), float(softcap), 1.0 / math.sqrt(hd))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

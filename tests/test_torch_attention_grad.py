@@ -5,17 +5,22 @@ by torch autograd) against ``jax.grad`` of the reference oracle
 ``repro.kernels.flash_attention.ref.attention_ref`` (K/V repeated for
 GQA) and of the whole attention block ``attend_full(impl="xla")``
 (projections, RoPE, masks), for causal, sliding-window, softcap and GQA
-cases.  Then a CPU emulation of the backward kernel's algorithm
-(``csrc/flash_attention_bwd.cu``: P recomputed per 32 x 32 tile from
-the forward's log-sum-exp, each row renormalised by its own sum of P
-with D = sum(P dP) / sum(P), dS = P (dP - D) with the softcap factor,
+cases.  Then a CPU emulation of the backward kernel's order of work
+(``csrc/flash_attention_bwd.cu``: per block of up to 128 keys and tile
+of query rows, S^T and dP^T key-major, P from the forward's
+log-sum-exp, each row renormalised by its own sum of P with D = sum(P
+dP) / sum(P) (from the same pass up to 128 keys, from a first pass
+over the key blocks past it), dS = P (dP - D) with the softcap factor,
 masked scores given no gradient, a fully masked row's uniform P, and
 the GQA sum over query heads) against torch autograd, also from a
 log-sum-exp put off per row, so that a fault of the algorithm shows
-before the card.
+before the card.  The emulation runs its five products in f32, and in
+the TF32 rounding of the tensor cores (``test_torch_tf32.py``).
 
 Tolerance: each gradient's max abs error within 1e-5 of its largest
-magnitude (f32 sums in other orders).
+magnitude in f32 (sums in other orders); with the products in 3xTF32
+within ``chip_smoke.ATTN_GRAD_REL_TOL`` (1e-4, the card's gate), which
+one TF32 pass misses.
 """
 
 import math
@@ -28,6 +33,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as tattn
 from repro_torch.models.common import AttnConfig as TAttn
 from repro_torch.models.common import ModelConfig as TCfg
+from test_torch_tf32 import MMS, chip_smoke
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -125,7 +131,6 @@ def test_attend_full_grad_matches_xla(case):
 # ------------------------------------------- the backward kernel, emulated
 
 NEG_INF = np.float32(fa_ops.NEG_INF)
-TILE = 32
 
 
 def _scores(q, k, scale, softcap):
@@ -165,86 +170,148 @@ def _forward_lse(q, k, v, causal, window, softcap):
     return o, (m + torch.log(l.clamp_min(1e-30)))[..., 0]
 
 
-def _emulated_bwd(q, k, v, lse, do, causal, window, softcap):
-    """The two backward launches, tile by tile, in f32: the dQ launch's
-    statistics pass (each row's sum of P and of P dP over all keys, so
-    lse_b = lse + log(sum P) and D = sum(P dP) / sum(P)), its dQ pass,
-    then the dK/dV launch on lse_b and D."""
+def _block_scores(qt, dot, kb, vb, rows, keys, lse_t, S, T, scale, masks,
+                  mm):
+    """One key block against one query tile, key-major as the kernel
+    computes them: P^T from S^T = K q^T and the forward's lse (the
+    uniform 1 / T on a row with no key), dP^T = V dO^T, the softcap
+    factor, and which rows have no key."""
+    st = mm(kb, qt.T) * scale
+    dpt = mm(vb, dot.T)
+    dcap = torch.ones_like(st)
+    if masks["softcap"] > 0:
+        th = torch.tanh(st / masks["softcap"])
+        st, dcap = masks["softcap"] * th, 1 - th * th
+    inb = (keys[:, None] < T) & (rows[None, :] < S)
+    ok = inb.clone()
+    if masks["causal"]:
+        ok &= keys[:, None] <= rows[None, :]
+    if masks["window"] > 0:
+        ok &= keys[:, None] > rows[None, :] - masks["window"]
+    dead = (lse_t <= NEG_INF)[None, :]
+    uniform = torch.tensor(1.0) / T
+    p = torch.where(dead, torch.where(inb, uniform, 0.0),
+                    torch.where(ok, torch.exp(st - lse_t[None, :]), 0.0))
+    return p, dpt, dcap, dead
+
+
+def _row_stats(p, dpt, dead):
+    """1 / sum P (1 on a row with no key) and D = sum(P dP) / sum(P)."""
+    ps, pd = p.sum(0), (p * dpt).sum(0)
+    live = ps > 0
+    inv = torch.where(dead[0] | ~live, 1.0, 1.0 / torch.where(live, ps, 1.0))
+    return inv, torch.where(live, pd / torch.where(live, ps, 1.0), 0.0)
+
+
+def _grads(p, dpt, dcap, dead, inv, dd):
+    """P / sum P and dS^T = P (dP - D) times the softcap factor."""
+    pb = p * inv[None, :]
+    return pb, torch.where(dead, 0.0, pb * (dpt - dd[None, :]) * dcap)
+
+
+def _emulated_bwd(q, k, v, lse, do, causal, window, softcap,
+                  mm=torch.matmul):
+    """The backward kernel's order of work, with its five products
+    through ``mm``.  Up to ``BLOCK_KEYS`` keys (one launch): per (b, kv
+    head), per query head of the group and tile of rows, S^T and dP^T
+    once, the row sums from that same pass, dV += P^T dO, dK += dS^T q,
+    and dQ of the tile, complete.  Past it (two launches): per (b, h,
+    tile) the key blocks for the row sums, then again for dS and dQ;
+    then per (b, kv head, key block) the tiles as above with the row
+    sums read."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    G, scale = H // KV, 1 / math.sqrt(hd)
-    lse_b, dsum = lse.clone(), torch.zeros_like(lse)
+    G, scale = H // KV, torch.tensor(1 / math.sqrt(hd))
+    R, NB = (64 if hd <= 64 else 32), fa_ops.BLOCK_KEYS
+    masks = dict(causal=causal, window=window, softcap=softcap)
+    whole = T <= NB
+    n_kb = -(-T // NB)
     dq, dk, dv = (torch.zeros_like(a) for a in (q, k, v))
 
-    def tile(b, h, q0, k0, lse, dsum):
-        rows = torch.arange(q0, q0 + TILE)
-        keys = torch.arange(k0, k0 + TILE)
-        rin, kin = rows < S, keys < T
-        rc, kc = rows.clamp(max=S - 1), keys.clamp(max=T - 1)
-        qs = torch.where(rin[:, None], q[b, rc, h] * scale, 0.0)
-        dos = torch.where(rin[:, None], do[b, rc, h], 0.0)
-        ks = torch.where(kin[:, None], k[b, kc, h // G], 0.0)
-        vs = torch.where(kin[:, None], v[b, kc, h // G], 0.0)
-        s, dp = qs @ ks.T, dos @ vs.T
-        th = None
-        if softcap > 0:
-            th = torch.tanh(s / softcap)
-            s = softcap * th
-        inb = rin[:, None] & kin[None, :]
-        ok = inb.clone()
-        if causal:
-            ok &= keys[None, :] <= rows[:, None]
-        if window > 0:
-            ok &= keys[None, :] > rows[:, None] - window
-        lse_t = torch.where(rin, lse[b, h, rc], 0.0)[:, None]
-        d_t = torch.where(rin, dsum[b, h, rc], 0.0)[:, None]
-        dead = lse_t <= NEG_INF
-        p = torch.where(ok, torch.exp(s - lse_t), 0.0)
-        p = torch.where(dead, torch.where(inb, 1.0 / T, 0.0), p)
-        ds = torch.where(ok & ~dead, p * (dp - d_t), 0.0)
-        if th is not None:
-            ds = ds * (1 - th * th)
-        return qs, dos, ks, p, dp, ds, rin, kin, rc, kc
+    def pad(x, n):  # rows past the end read as zero
+        return torch.cat([x, x.new_zeros(n - x.shape[0], *x.shape[1:])])
 
-    for b in range(B):
-        for h in range(H):                                  # dQ launch
-            for q0 in range(0, S, TILE):
-                ps = pd = 0
-                for k0 in range(0, T, TILE):
-                    _, _, _, p, dp, _, rin, _, rc, _ = tile(
-                        b, h, q0, k0, lse, dsum)
-                    ps, pd = ps + p.sum(1), pd + (p * dp).sum(1)
-                r = rc[rin]
-                live = (lse[b, h, r] > NEG_INF) & (ps[rin] > 0)
-                lse_b[b, h, r] = torch.where(
-                    live, lse[b, h, r] + torch.log(ps[rin]), lse[b, h, r])
-                dsum[b, h, r] = torch.where(ps[rin] > 0, pd[rin] / ps[rin],
-                                            0.0)
-                acc = 0
-                for k0 in range(0, T, TILE):
-                    _, _, ks, _, _, ds, rin, _, rc, _ = tile(
-                        b, h, q0, k0, lse_b, dsum)
-                    acc = acc + ds @ ks
-                dq[b, rc[rin], h] = (acc * scale)[rin]
-        for kvh in range(KV):                               # dK/dV launch
-            for k0 in range(0, T, TILE):
+    def tile(b, h, q0):
+        rows = torch.arange(q0, q0 + R)
+        lse_t = pad(lse[b, h, q0:q0 + R], R)
+        return (rows, pad(q[b, q0:q0 + R, h], R), pad(do[b, q0:q0 + R, h], R),
+                lse_t)
+
+    def block(b, kvh, k0):
+        return (torch.arange(k0, k0 + NB), pad(k[b, k0:k0 + NB, kvh], NB),
+                pad(v[b, k0:k0 + NB, kvh], NB))
+
+    stats = {}
+    if not whole:                                       # the dQ launch
+        for b in range(B):
+            for h in range(H):
+                for q0 in range(0, S, R):
+                    rows, qt, dot, lse_t = tile(b, h, q0)
+                    ps = pd = 0
+                    for k0 in range(0, T, NB):
+                        keys, kb, vb = block(b, h // G, k0)
+                        p, dpt, _, dead = _block_scores(
+                            qt, dot, kb, vb, rows, keys, lse_t, S, T, scale,
+                            masks, mm)
+                        ps, pd = ps + p.sum(0), pd + (p * dpt).sum(0)
+                    live = ps > 0
+                    inv = torch.where(dead[0] | ~live, 1.0,
+                                      1.0 / torch.where(live, ps, 1.0))
+                    dd = torch.where(live, pd / torch.where(live, ps, 1.0),
+                                     0.0)
+                    stats[b, h, q0] = inv, dd
+                    acc = 0
+                    for k0 in range(0, T, NB):
+                        keys, kb, vb = block(b, h // G, k0)
+                        p, dpt, dcap, dead = _block_scores(
+                            qt, dot, kb, vb, rows, keys, lse_t, S, T, scale,
+                            masks, mm)
+                        _, dst = _grads(p, dpt, dcap, dead, inv, dd)
+                        acc = acc + mm(dst.T, kb)
+                    n = min(R, S - q0)
+                    dq[b, q0:q0 + n, h] = (acc * scale)[:n]
+    for b in range(B):                                  # the dK/dV launch
+        for kvh in range(KV):
+            for k0 in range(0, T, NB):
+                keys, kb, vb = block(b, kvh, k0)
                 ak = av = 0
                 for h in range(kvh * G, kvh * G + G):
-                    for q0 in range(0, S, TILE):
-                        qs, dos, _, p, _, ds, _, kin, _, kc = tile(
-                            b, h, q0, k0, lse_b, dsum)
-                        av = av + p.T @ dos
-                        ak = ak + ds.T @ qs
-                dk[b, kc[kin], kvh] = ak[kin]
-                dv[b, kc[kin], kvh] = av[kin]
+                    for q0 in range(0, S, R):
+                        rows, qt, dot, lse_t = tile(b, h, q0)
+                        p, dpt, dcap, dead = _block_scores(
+                            qt, dot, kb, vb, rows, keys, lse_t, S, T, scale,
+                            masks, mm)
+                        inv, dd = (_row_stats(p, dpt, dead) if whole
+                                   else stats[b, h, q0])
+                        pb, dst = _grads(p, dpt, dcap, dead, inv, dd)
+                        av = av + mm(pb, dot)
+                        ak = ak + mm(dst, qt)
+                        if whole:
+                            n = min(R, S - q0)
+                            dq[b, q0:q0 + n, h] = (mm(dst.T, kb) * scale)[:n]
+                n = min(NB, T - k0)
+                dk[b, k0:k0 + n, kvh] = (ak * scale)[:n]
+                dv[b, k0:k0 + n, kvh] = av[:n]
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("case", CASES + [
-    (2, 40, 37, 4, 2, 24, True, 0, 0.0),     # ragged tiles both ways
-    (1, 70, 70, 2, 1, 8, False, 9, 1.5),
-])
-def test_backward_algorithm_matches_autograd(case):
+# the switch between the kernel's one-launch and two-launch paths, hd 128
+# (tiles of 32 rows) and long causal windows
+PATH_CASES = [
+    (2, 96, 128, 4, 2, 40, False, 0, 0.0),
+    (2, 96, 129, 4, 2, 40, False, 0, 2.0),
+    (1, 64, 64, 2, 2, 128, True, 0, 0.0),
+    (1, 300, 300, 2, 1, 64, True, 64, 0.0),
+    (1, 300, 140, 2, 2, 8, False, 3, 0.0),     # rows 142.. see no key
+]
+
+
+def _grad_case(case):
+    """Inputs, masks, autograd's gradients of the plain version, and the
+    forward's log-sum-exp as is and put off by up to 1e-3 per row (the
+    card's 3xTF32 forward against the backward's recompute, much
+    magnified): the row sums renormalise P, so both give the same
+    gradients."""
     B, S, T, H, KV, hd, causal, window, softcap = case
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, KV, hd,
                                                          seed=3))
@@ -252,15 +319,40 @@ def test_backward_algorithm_matches_autograd(case):
     o, lse = _forward_lse(q, k, v, **masks)
     _close(o.numpy(), fa_ops.attention_plain(q, k, v, **masks).numpy(), "o")
     want = fa_ops.attention_grad_plain(q, k, v, do, **masks)
-    # a forward whose log-sum-exp is off by a per-row amount (the card's
-    # 3xTF32 forward against the f32 recompute, much magnified) gives the
-    # same gradients: the statistics pass renormalises P
     off = torch.from_numpy(np.random.default_rng(4).uniform(
         -1e-3, 1e-3, lse.shape).astype(np.float32))
-    for lse_in in (lse, torch.where(lse > NEG_INF, lse + off, lse)):
+    return (q, k, v, do), masks, want, (
+        lse, torch.where(lse > NEG_INF, lse + off, lse))
+
+
+@pytest.mark.parametrize("case", CASES + [
+    (2, 40, 37, 4, 2, 24, True, 0, 0.0),     # ragged tiles both ways
+    (1, 70, 70, 2, 1, 8, False, 9, 1.5),
+] + PATH_CASES)
+def test_backward_algorithm_matches_autograd(case):
+    (q, k, v, do), masks, want, lses = _grad_case(case)
+    for lse_in in lses:
         got = _emulated_bwd(q, k, v, lse_in, do, **masks)
         for name, g, w in zip("qkv", got, want):
             _close(g.numpy(), w.numpy(), name)
+
+
+@pytest.mark.parametrize("scheme", ["3xtf32", "3xtf32_rz", "1xtf32"])
+@pytest.mark.parametrize("case", CASES + PATH_CASES)
+def test_backward_tf32_within_tolerance(case, scheme):
+    """The kernel's order of work with its products (P and dS among their
+    operands) in 3xTF32 holds the card's gate, with small rounded and
+    truncated (the kernel's split); in one TF32 pass it misses it."""
+    (q, k, v, do), masks, want, lses = _grad_case(case)
+    tol = chip_smoke.ATTN_GRAD_REL_TOL
+    for lse_in in lses:
+        got = _emulated_bwd(q, k, v, lse_in, do, **masks, mm=MMS[scheme])
+        rel = max(float((g - w).abs().max()) / float(w.abs().max())
+                  for g, w in zip(got, want))
+        if scheme.startswith("3x"):
+            assert rel <= tol, rel
+        else:
+            assert rel > tol, rel
 
 
 def test_flash_attention_is_differentiable_on_the_cpu():

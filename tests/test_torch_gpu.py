@@ -393,6 +393,12 @@ BWD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
     (2, 64, 64, 6, 2, 32, False, 0, 5.0),
     (1, 40, 40, 2, 1, 128, True, 7, 3.0),
     (1, 20, 8, 2, 2, 8, False, 3, 0.0),        # rows with no key
+    # one launch up to 128 keys, two launches past it
+    (2, 96, 128, 4, 2, 40, False, 0, 0.0),
+    (2, 96, 129, 4, 2, 40, False, 0, 2.0),
+    (2, 128, 128, 4, 4, 128, False, 0, 0.0),   # hd 128, one launch
+    (1, 300, 300, 2, 1, 64, True, 64, 0.0),    # long T, causal window
+    (1, 300, 140, 2, 2, 8, False, 3, 0.0),     # long T, rows with no key
 ]
 
 
@@ -415,6 +421,27 @@ def test_flash_attention_backward_matches_plain(B, S, T, H, KV, hd, causal,
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_flash_attention_backward_takes_strided_inputs():
+    """Inputs the kernel cannot read as they are (a transposed view, a
+    row offset that breaks 16-byte alignment) are copied first; the
+    gradients are those of contiguous inputs."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, S, H, hd = 2, 40, 4, 16
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    q, k, v, do = (r(B, H, S, hd).transpose(1, 2) for _ in range(4))
+    lse = fa_ops._forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                          True, 0, 0.0, True)[1]
+    shifted = torch.empty(lse.numel() + 1, device="cuda")[1:].view_as(lse)
+    shifted.copy_(lse)
+    got = fa_ops.flash_attention_bwd(q, k, v, shifted, do, causal=True)
+    want = fa_ops.flash_attention_bwd(*(t.contiguous() for t in (q, k, v)),
+                                      lse, do.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_expert_step_on_card_matches_cpu():

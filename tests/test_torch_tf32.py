@@ -9,7 +9,11 @@ bits, clear the low 13) in torch on numpy-seeded inputs and shows that
 3xTF32 stays within the card's f32 gates (``chip_smoke.py``'s
 ``ATTN_TOL`` and ``MLSTM_REL_TOL``, the tolerances of
 ``tests/test_torch_gpu.py``) while a single TF32 pass does not.  So the
-kernels keep the tolerances of their f32 predecessors.  No card needed.
+kernels keep the tolerances of their f32 predecessors.
+``csrc/flash_attention_bwd.cu`` leaves small as the f32 difference
+x - big, which the tensor cores truncate to TF32 (``tf32_rz``,
+``mm_3xtf32_rz``; its gate is held in ``test_torch_attention_grad.py``).
+No card needed.
 """
 
 import importlib.util
@@ -38,17 +42,30 @@ def tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def mm_3xtf32(a, b):
+def tf32_rz(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits (the
+    low 13 dropped, a truncation toward zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b, small=tf32):
     a_big, b_big = tf32(a), tf32(b)
-    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    a_small, b_small = small(a - a_big), small(b - b_big)
     return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def mm_3xtf32_rz(a, b):
+    """3xTF32 with small left unrounded for the tensor cores to truncate
+    (``split_tf32_rz`` of ``csrc/mma_tf32.cuh``)."""
+    return mm_3xtf32(a, b, small=tf32_rz)
 
 
 def mm_1xtf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-MMS = {"3xtf32": mm_3xtf32, "1xtf32": mm_1xtf32}
+MMS = {"3xtf32": mm_3xtf32, "3xtf32_rz": mm_3xtf32_rz, "1xtf32": mm_1xtf32}
 
 
 def test_tf32_rounding():
@@ -60,6 +77,16 @@ def test_tf32_rounding():
     # big + small keeps 22 of the 24 bits
     big = tf32(x)
     assert ((big + tf32(x - big)) - x).abs().max() <= 2 ** -22 * 2
+
+
+def test_truncated_small_half_keeps_22_bits():
+    """big + truncated small is within 2^-22 of |x| (2^-23 rounded)."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096).astype(np.float32))
+    big = tf32(x)
+    for small, bound in ((tf32, 2.0 ** -23), (tf32_rz, 2.0 ** -22)):
+        err = ((big + small(x - big)) - x).abs() / x.abs()
+        assert float(err.max()) <= bound, (small.__name__, float(err.max()))
 
 
 def attention_emulated(q, k, v, mm):
