@@ -41,6 +41,21 @@ just before it and read just after:
 * ``adapt_path``: ``benchmarks/run.py``'s drift scenario on the trained
   library through ``serve()``, a frozen and an adapting engine, and one
   ``"head"`` and one ``"all"`` online step held card vs CPU.
+* ``cache_tiers``: ``benchmarks/run.py``'s ``bench_cache`` at full size
+  on the trained library (11 experts, seq 128): 96 unique prompts, 64
+  exact repeats and 96 paraphrases through a fresh-scoring oracle, the
+  exact tier alone, every tier (a ``DiskKVStore`` plus the semantic
+  tier at an eps calibrated on the card's embeddings) and a restart
+  over the same directory: against the oracle, no wrong routing from
+  the exact tiers or a fresh score (near ties excused), the semantic
+  tier's wrong routings counted and listed; the restart answers from T1
+  and T2 with the tiered run's verdicts; no stale version; and the
+  tiered engine's routing rerun on the CPU gives the same choice and
+  tier per row;
+* ``serve_cli``: ``python -m repro_torch.launch.serve``'s ``main`` three
+  times: every tier under 600 req/s Poisson arrivals over 4 sessions,
+  the same again as a restart over the same directory (answered from
+  T2), and the FIFO drain with the exact tier.
 
 It checks that every kernel of each path was launched in that path's
 run, and times each kernel beside its bound; the router heads also at
@@ -68,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -143,6 +159,11 @@ FLAG_TEXTS = ["", "[Flag: Prefer small]", "[Flag: Smallest model]",
               "[Flag: Newest model]", "[Flag: Best model]",
               "[Flag: Small model] [Flag: Recent model]"]
 N_REQUESTS, N_UNIQUE, SEQ, MAX_BATCH = 256, 192, 128, 32
+# cache_tiers: bench_cache's stream at full size; serve_cli: the arrival
+# rate of its runs A and B, about half serve()'s closed-loop rate
+CT_UNIQUE, CT_REPEAT, CT_PARA = 96, 64, 96
+CLI_RATE = 600.0
+OUT_DIR = ROOT / "chiprun_out"
 
 # name: (source, the TPU kernel it replaces, the name its device
 # functions carry in ptxas, cuobjdump and the profiler)
@@ -1487,6 +1508,359 @@ def adapt_path_phase(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 4f
+
+class TierLog:
+    """Which tier answered each request of an engine's run: wraps the
+    cache's exact probe (``lookup``) and semantic probe
+    (``lookup_semantic``, with the nearest neighbour's squared distance
+    read from the T3 index before the probe) and maps the probes back
+    to rows.  ``run()`` and ``pipeline.admit`` probe every row of an
+    admission batch in order, then the exact misses in order."""
+
+    def __init__(self, eng):
+        self.events = []
+        cache = eng.cache
+        lookup = cache.lookup
+        sem = getattr(cache, "lookup_semantic", None)
+
+        def exact(key):
+            entry, tier = lookup(key)
+            self.events.append(("exact", tier, None))
+            return entry, tier
+
+        def semantic(emb, key, version):
+            found = cache.semantic._ctx.get((key[3], key[4]))
+            near = found[0].query(np.asarray(emb, np.float32).ravel()) \
+                if found is not None else None
+            entry, status = sem(emb, key, version)
+            self.events.append(("sem", status,
+                                None if near is None else near[1]))
+            return entry, status
+
+        cache.lookup = exact
+        if sem is not None:
+            cache.lookup_semantic = semantic
+
+    def rows(self, n: int) -> tuple[list, list]:
+        """(tier per row: "t1"/"t2"/"t3"/"fresh", the squared distance
+        of each row's T3 probe or None) for the last ``n`` rows."""
+        tiers, d2, misses, row = [], [], [], 0
+        for kind, status, dist in self.events:
+            if kind == "exact":
+                tiers.append(status or "fresh")
+                d2.append(None)
+                if not status:
+                    misses.append(row)
+                row += 1
+            else:
+                i = misses.pop(0)
+                d2[i] = dist
+                if status == "hit":
+                    tiers[i] = "t3"
+        return tiers[-n:], d2[-n:]
+
+
+def cache_tiers_phase(torch) -> dict:
+    """``benchmarks/run.py``'s ``bench_cache`` at full size on the card:
+    ``train_path``'s library (11 experts) and router, read back with
+    ``load_artifacts``, at seq 128; 96 unique corpus prompts, 64 exact
+    repeats, 96 paraphrases (one token of an earlier prompt replaced),
+    the four-flag mix.  Engines: a fresh-scoring oracle (no cache), the
+    exact tier alone, every tier (a ``DiskKVStore`` in a temporary
+    directory plus T3 at an eps calibrated on the card's embeddings),
+    and a restart over the same directory; then the tiered engine's
+    routing again on the CPU.  Returns the phase's line.
+
+    ``bench_cache`` fails on any wrong routing.  Here that holds for
+    the exact tiers and fresh scores only: eps bounds the distance
+    between the unique prompts' disagreeing verdicts, not the distance
+    from a paraphrase to a decision boundary, so T3 may hand a
+    paraphrase its neighbour's verdict where a fresh score differs.
+    Those rows are counted (``wrong_t3``) and listed with their oracle
+    gap and squared distance over eps squared."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import experiment as ex
+    from repro_torch.core.objective import (constraint_matrix,
+                                            recency_constraint,
+                                            size_constraint)
+    from repro_torch.data.corpus import N_SPECIAL
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.router_score import ops as rs_ops
+    from repro_torch.serving import (Request, TryageEngine, calibrate_eps,
+                                     lambda_matrix)
+    from repro_torch.serving.engine import EngineStats
+
+    art = ex.load_artifacts()
+    lib, rp, rc, corpus = (art["library"], art["router_params"], art["rc"],
+                           art["corpus"])
+    cons = [size_constraint(lib), recency_constraint(lib)]
+    cnames = [c.name for c in cons]
+    cmat = constraint_matrix(cons, len(lib))
+    flag_mix = [{}, {"size": 1.0}, {"size": 8.0}, {"recency": 2.0}]
+    rng = np.random.default_rng(0)
+    toks, _ = corpus.sample_mixture({d: 1.0 / 8 for d in corpus.tables},
+                                    CT_UNIQUE, SEQ, rng)
+    para = toks[np.arange(CT_PARA) % CT_UNIQUE].copy()
+    for i in range(CT_PARA):           # paraphrase: replace one token
+        para[i, rng.integers(0, SEQ)] = rng.integers(N_SPECIAL,
+                                                     corpus.vocab_size)
+    stream = ([toks[i] for i in range(CT_UNIQUE)]
+              + [toks[i % CT_UNIQUE] for i in range(CT_REPEAT)]
+              + [para[i] for i in range(CT_PARA)])
+    n = len(stream)
+
+    def workload():
+        return [Request(uid=i, tokens=t, lambdas=flag_mix[i % 4])
+                for i, t in enumerate(stream)]
+
+    def engine(library=lib, router=rp, device="cuda", **kw):
+        return TryageEngine(library, router, rc, cons, max_batch=MAX_BATCH,
+                            device=device, **kw)
+
+    def run_measured(eng):
+        """bench_cache's measurement: a warm-up run of 8 other prompts,
+        the cache's in-memory tiers cleared and the stats reset, then
+        the stream, with the tier of every row logged."""
+        warm = rng.integers(N_SPECIAL, corpus.vocab_size, size=(8, SEQ))
+        for i in range(8):
+            eng.submit(Request(uid=-1 - i, tokens=warm[i].astype(np.int32)))
+        eng.run()
+        if eng.cache is not None:
+            eng.cache.clear()
+        eng.stats = EngineStats()
+        log = TierLog(eng) if eng.cache is not None else None
+        for r in workload():
+            eng.submit(r)
+        t0 = time.perf_counter()
+        out = {r.uid: r for r in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(sorted(out) == list(range(n)), "not one Result per request")
+        return out, log, wall
+
+    reqs = workload()
+    oracle_eng = engine(decision_cache=False)
+    oracle, _, oracle_wall = run_measured(oracle_eng)
+    gaps = {}
+    for u, r in oracle.items():
+        sc = np.sort(r.pred_losses + lambda_matrix([reqs[u]], cnames)[0]
+                     @ cmat)
+        gaps[u] = float(sc[1] - sc[0])
+
+    # eps per context on the card's embeddings of the unique prefix
+    uniq = reqs[:CT_UNIQUE]
+    emb = oracle_eng._embed_batch(uniq)
+    choices = np.array([oracle[r.uid].expert for r in uniq])
+    ctx = np.arange(CT_UNIQUE) % 4
+    eps = min(calibrate_eps(emb[ctx == c], choices[ctx == c], margin=0.5)
+              for c in range(4))
+    eps_rule = "0.5x the closest same-context disagreeing pair"
+    if not np.isfinite(eps):           # every verdict agrees
+        d = ((emb[:, None] - emb[None]) ** 2).sum(-1)
+        eps = 0.5 * float(np.sqrt(np.median(d[d > 0])))
+        eps_rule = "0.5x the median pairwise distance (no disagreeing pair)"
+
+    def measure(tag, eng):
+        """Serve the stream; the phase's numbers for ``eng``, and each
+        row's Result, tier and T3 distance.  A row is wrong where its
+        expert is not the oracle's; excused where the oracle's top-two
+        gap is under CHOICE_GAP."""
+        out, log, wall = run_measured(eng)
+        st = eng.stats
+        tiers, d2 = log.rows(n)
+        wrong = [u for u in out if out[u].expert != oracle[u].expert]
+        tied = [u for u in wrong if gaps[u] < CHOICE_GAP]
+        line = {"hit_rate": st.cache_hit_rate,
+                "tiers": {k: int(v) for k, v in
+                          sorted(st.cache_tier_hits.items())},
+                "revalidations": st.cache_revalidations,
+                "revalidation_rejects": st.cache_revalidation_rejects,
+                "router_batches": st.router_batches,
+                "router_ms_per_request": 1e3 * st.router_time_s / n,
+                "wall_s": wall, "wrong": len(wrong),
+                "near_tie_excused": len(tied),
+                "wrong_t3": sum(tiers[u] == "t3" for u in wrong
+                                if u not in tied),
+                "wrong_rows": [
+                    {"uid": u, "tier": tiers[u], "served": out[u].expert,
+                     "oracle": oracle[u].expert, "oracle_gap": gaps[u],
+                     "d2_over_eps2": (None if d2[u] is None
+                                      else d2[u] / eps ** 2)}
+                    for u in wrong]}
+        return line, out, tiers, d2, [u for u in wrong if u not in tied]
+
+    # exact tiers answer only byte-identical requests: no wrong routing
+    exact, _, _, _, bad = measure("exact", engine())
+    check(not bad, f"exact: wrong routings against the oracle, uids {bad}")
+    tmp = tempfile.mkdtemp(prefix="cache_tiers_")
+    try:
+        tiered_eng = engine(cache_dir=os.path.join(tmp, "card"),
+                            cache_semantic_eps=eps)
+        scored = {"calls": 0, "router_score": 0}
+        inner = tiered_eng._score_from_emb
+
+        def score_from_emb(reqs_, emb_):
+            before = rs_ops.router_score_fused.launches
+            out = inner(reqs_, emb_)
+            scored["calls"] += 1
+            scored["router_score"] += (rs_ops.router_score_fused.launches
+                                       - before)
+            return out
+
+        tiered_eng._score_from_emb = score_from_emb
+        launches.reset_launch_counts()
+        tiered, t_out, t_tiers, t_d2, bad = measure("tiered", tiered_eng)
+        counts = launches.launch_counts()
+        # T3 answers a paraphrase with its neighbour's verdict: the only
+        # rows that may differ from a fresh score (reported, see wrong_t3)
+        check(all(t_tiers[u] == "t3" for u in bad),
+              f"tiered: wrong routings outside T3, uids "
+              f"{[u for u in bad if t_tiers[u] != 't3']}")
+        check(scored["calls"] > 0 and scored["router_score"] > 0,
+              f"the T3 path launched no router_score: {scored}")
+        stale = sorted(tiered_eng.cache.stale_versions(
+            tiered_eng.router_version))
+        tiered_eng.cache.close()
+        restart_eng = engine(cache_dir=os.path.join(tmp, "card"),
+                             cache_semantic_eps=eps)
+        restart, r_out, _, _, _ = measure("restart", restart_eng)
+        moved = [u for u in range(n) if r_out[u].expert != t_out[u].expert]
+        check(not moved, f"restart: verdicts differ from the tiered "
+                         f"run's, uids {moved}")
+        stale += sorted(restart_eng.cache.stale_versions(
+            restart_eng.router_version))
+        restart_eng.cache.close()
+        check(restart["hit_rate"] >= 0.99
+              and set(restart["tiers"]) <= {"t1", "t2"},
+              f"restart: hit rate {restart['hit_rate']}, tiers "
+              f"{restart['tiers']}")
+        check(not stale, f"stale router versions in the cache: {stale}")
+
+        # the tiered engine's routing again on the CPU, same weights
+        lib_cpu = copy.deepcopy(lib)
+        for e in lib_cpu.experts:
+            e.params.cpu()
+        cpu_eng = engine(lib_cpu, copy.deepcopy(rp).cpu(), "cpu",
+                         cache_dir=os.path.join(tmp, "cpu"),
+                         cache_semantic_eps=eps)
+        log = TierLog(cpu_eng)
+        cpu_choice = []
+        for k in range(0, n, MAX_BATCH):
+            ctx_ = cpu_eng.pipeline.admit(workload()[k:k + MAX_BATCH])
+            cpu_choice += [lib[int(c)].name for c in ctx_.choice]
+        cpu_eng.cache.close()
+        c_tiers, c_d2 = log.rows(n)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    differ, boundary, tied = [], 0, 0
+    for u in range(n):
+        if (t_tiers[u], t_out[u].expert) == (c_tiers[u], cpu_choice[u]):
+            continue
+        differ.append(u)
+        ds = [x for x in (t_d2[u], c_d2[u]) if x is not None]
+        if any(abs(x - eps ** 2) <= 1e-4 * eps ** 2 for x in ds):
+            boundary += 1
+        elif gaps[u] < CHOICE_GAP:
+            tied += 1
+    check(len(differ) == boundary + tied,
+          f"card and CPU tiered engines differ on uids {differ}")
+    out = {"requests": n, "unique": CT_UNIQUE, "repeats": CT_REPEAT,
+           "paraphrases": CT_PARA, "seq": SEQ, "experts": len(lib),
+           "eps": eps, "eps_rule": eps_rule,
+           "oracle": {"router_ms_per_request":
+                      1e3 * oracle_eng.stats.router_time_s / n,
+                      "wall_s": oracle_wall},
+           "exact": exact, "tiered": tiered, "restart": restart,
+           "hit_rate_ratio": tiered["hit_rate"] / max(exact["hit_rate"],
+                                                      1e-9),
+           "launches": counts, "t3_scoring": scored,
+           "stale_versions": stale,
+           "cpu_rerun": {"rows": n, "differ": differ,
+                         "eps_boundary_excused": boundary,
+                         "near_tie_excused": tied,
+                         "tiers": {t: c_tiers.count(t)
+                                   for t in sorted(set(c_tiers))}}}
+    emit("cache_tiers", **out)
+    return out
+
+
+def serve_cli_phase(torch, eps: float) -> dict:
+    """``python -m repro_torch.launch.serve``'s ``main`` three times over
+    ``train_path``'s artifacts: (A) every cache tier in a temporary
+    directory, 600 req/s Poisson arrivals over 4 sessions, the fused
+    cascade; (B) the same again, a restart over the same directory;
+    (C) the FIFO drain with the exact tier, closed loop.  Each run's
+    summary JSON goes to ``chiprun_out/serve_cli_<run>.json``."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch import serve as cli
+
+    tmp = tempfile.mkdtemp(prefix="serve_cli_")
+    base = ["--requests", str(N_REQUESTS), "--cascade", "0.6",
+            "--fused-cascade"]
+    tiered = base + ["--cache-tiers", "exact,persistent,semantic",
+                     "--cache-dir", os.path.join(tmp, "t2"),
+                     "--cache-semantic", repr(eps),
+                     "--arrival-rate", str(CLI_RATE), "--sessions", "4"]
+    runs = {"A": tiered, "B": tiered, "C": ["--fifo"] + base}
+    out = {}
+    try:
+        for name, argv in runs.items():
+            metrics = os.path.join(tmp, f"{name}.prom")
+            printed = io.StringIO()
+            launches.reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                summary = cli.main(argv + ["--metrics-out", metrics])
+            counts = launches.launch_counts()
+            with open(metrics) as f:
+                text = f.read()
+            OUT_DIR.mkdir(exist_ok=True)
+            (OUT_DIR / f"serve_cli_{name}.json").write_text(
+                json.dumps(summary, indent=1))
+            eng = summary["engine"]
+            check(summary["requests"] == N_REQUESTS
+                  and eng["fallback"]["failed"] == 0
+                  and eng["frontend"]["shed"] == 0
+                  and np.isfinite(summary["mean_mlm_loss"]),
+                  f"run {name}: {summary['requests']} served, "
+                  f"{eng['fallback']['failed']} failed, loss "
+                  f"{summary['mean_mlm_loss']}")
+            check(summary["device"].startswith("cuda"),
+                  f"run {name} served on {summary['device']}")
+            check(counts["flash_attention"] > 0,
+                  f"run {name}: flash_attention not launched {counts}")
+            out[name] = {"argv": argv, "req_per_s": summary["req_per_s"],
+                         "wall_s": summary["wall_s"],
+                         "latency": eng["latency"],
+                         "cache": eng["cache"], "flushes": eng["flushes"],
+                         "escalations": eng["cascade"]["escalations"],
+                         "router_batches": eng["router_batches"],
+                         "mean_mlm_loss": summary["mean_mlm_loss"],
+                         "launches": counts,
+                         "t2_series": [ln for ln in text.splitlines()
+                                       if ln.startswith(
+                                           "tryage_cache_tier_hits_total{")]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = out["B"]["cache"]
+    check(b["hit_rate"] >= 0.99 and b["tiers"].get("t2", 0) > 0,
+          f"restart: hit rate {b['hit_rate']}, tiers {b['tiers']}")
+    check(any('tier="t2"' in ln for ln in out["B"]["t2_series"]),
+          "the restart's metrics carry no t2 hits")
+    check(out["A"]["launches"]["router_score"] > 0
+          and out["C"]["launches"]["router_cascade"] > 0,
+          "router_score (run A's T3 path) or router_cascade (run C) "
+          "not launched")
+    emit("serve_cli", arrival_rate=CLI_RATE, eps=eps, runs=out)
+    return out
+
+
 # -------------------------------------------------------------- phase 5
 
 def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
@@ -1775,6 +2149,8 @@ def main() -> int:
     err["flash_attention_bwd"] = attention_grad_phase(torch)
     train = train_path_phase(torch)
     adapt_path_phase(torch)
+    tiers = cache_tiers_phase(torch)
+    serve_cli_phase(torch, tiers["eps"])
     # launches of each kernel in the run of the path that uses it
     path_launches = {n: main["launches"][n] for n in ROUTER_PATH}
     path_launches["mlstm_scan"] = xlstm["launches"]["mlstm_scan"]

@@ -30,6 +30,17 @@ and the depth-1 escalation target.  The staged sigma pass and the
 cascade's host walk stay plain torch / numpy, as the JAX engine leaves
 them to XLA and numpy.
 
+Decision cache: the exact LRU (T1) alone, or with ``cache_kv`` /
+``cache_dir`` (T2, a persistent ``serving.kvstore`` store whose keys and
+verdicts are byte-identical to the JAX engine's, so one store serves
+both) and ``cache_semantic_eps`` (T3, the nearest cached router
+embedding within eps, revalidated against the live router version) the
+three-tier ``DecisionCacheStack``.  With T3 on, the exact misses of a
+batch are embedded once on the card (``_embed_batch``) for the probe,
+and those still missing are scored from those embeddings by the
+``router_score`` kernel with zero constraints, then a host f64
+constraint add and argmin (``_score_from_emb``), as the JAX engine does.
+
 Requests keep their tokens as host numpy int32 arrays (the decision
 cache hashes those bytes, identically to the JAX engine); tensors move
 to the engine's device only inside the engine.  Expert micro-batches are
@@ -40,10 +51,11 @@ stage replays a batch from the replay buffer through
 ``core.training.make_router_update_step`` on shadow weights (outside
 ``inference_mode``, with grad on), and the new router is published with
 ``VersionedParams.swap``: the version in every decision-cache key moves
-on, and the cache is cleared.
+on, and the in-memory tiers (T1, T3) are cleared; T2 keeps its records,
+which only a replica at their version can read.
 
-Not ported yet: the T2/T3 cache tiers and mesh placement.  Their knobs
-are absent from the constructor.
+Not ported yet: mesh placement.  Its knobs are absent from the
+constructor.
 """
 
 from __future__ import annotations
@@ -70,12 +82,14 @@ from repro_torch.device import module_device, resolve_device
 from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
 from repro_torch.models.model import forward
-from repro_torch.serving.cache import DecisionCache
+from repro_torch.serving.cache import DecisionCache, DecisionCacheStack
 from repro_torch.serving.feedback import ReplayBuffer
 from repro_torch.serving.health import ExpertHealth
+from repro_torch.serving.kvstore import DiskKVStore
 from repro_torch.serving.pipeline import RouteContext, ServingPipeline
 from repro_torch.serving.requests import Request, Result, lambda_matrix
 from repro_torch.serving.scheduler import ExpertScheduler, LaneEntry
+from repro_torch.serving.semcache import SemanticCache
 
 
 def bucket_size(n: int) -> int:
@@ -85,11 +99,14 @@ def bucket_size(n: int) -> int:
 
 @dataclasses.dataclass
 class EngineStats:
-    """The JAX engine's telemetry, field for field, as far as the port
-    fills it.  ``cache_tier_hits`` and ``cache_revalidations*`` belong
-    to the T2/T3 cache tiers, not ported yet; they stay at zero, as on
-    a JAX engine with those tiers off, so that
-    ``serving.metrics.render`` reads the same series from both."""
+    """The JAX engine's telemetry, field for field, so that
+    ``serving.metrics.render`` reads the same series from both.
+    ``cache_tier_hits`` counts every cache hit under its tier (``t1``
+    whenever the cache is on, ``t2`` / ``t3`` with those tiers);
+    ``cache_revalidations`` counts T3 candidates found within eps and
+    ``cache_revalidation_rejects`` those whose router version was
+    stale.  ``router_tiles`` holds the port's own launch plans (the
+    CUDA kernels' cluster geometry), keyed by kernel name."""
 
     served: int = 0
     per_expert: dict = dataclasses.field(
@@ -205,6 +222,11 @@ class EngineStats:
                 "cache": {"hits": self.cache_hits,
                           "misses": self.cache_misses,
                           "hit_rate": round(self.cache_hit_rate, 4),
+                          "tiers": {k: int(v) for k, v in
+                                    sorted(self.cache_tier_hits.items())},
+                          "revalidations": self.cache_revalidations,
+                          "revalidation_rejects":
+                              self.cache_revalidation_rejects,
                           "dropped_lambda":
                               self.cache_key_dropped_lambda},
                 "cascade": {
@@ -266,7 +288,16 @@ class TryageEngine:
     - ``max_batch``: admission-batch size; ``buckets``: pad expert
       micro-batches and decision batches to powers of two.
     - ``decision_cache`` / ``cache_capacity``: the exact LRU of routing
-      verdicts.
+      verdicts (T1).
+    - ``cache_kv`` / ``cache_dir``: the persistent tier (T2): inject a
+      ``serving.kvstore`` store (a ``MemoryKVStore`` shared by replicas,
+      or an adapter to a real Valkey), or name a directory for the
+      crash-safe ``DiskKVStore``.  The same directory and router version
+      give a warm cache after a restart.
+    - ``cache_semantic_eps`` / ``cache_semantic_cap``: the semantic tier
+      (T3) over router embeddings; ``eps > 0`` turns it on (calibrate
+      with ``serving.semcache.calibrate_eps``).  Without T2 and T3 the
+      cache is the plain ``DecisionCache``.
     - ``cascade_max_depth``: bound on escalation steps; 0 disables the
       cascade.
     - ``fused_cascade``: decide batches with cascade traffic in one
@@ -299,6 +330,9 @@ class TryageEngine:
                  rc: RouterConfig, constraints: Sequence[Constraint] = (),
                  max_batch: int = 16, buckets: bool = True,
                  decision_cache: bool = True, cache_capacity: int = 4096,
+                 cache_kv=None, cache_dir: str | None = None,
+                 cache_semantic_eps: float = 0.0,
+                 cache_semantic_cap: int = 65536,
                  cascade_max_depth: int = 2, fused_cascade: bool = False,
                  lane_target: int | None = None, max_wait_s: float = 0.05,
                  speculate: bool = False,
@@ -333,7 +367,19 @@ class TryageEngine:
         self.lane_target = (bucket_size(max_batch) if lane_target is None
                             else lane_target)
         self.max_wait_s = max_wait_s
-        self.cache = DecisionCache(cache_capacity) if decision_cache else None
+        # exact-only traffic gets the plain LRU; T2 or T3 builds the stack
+        self.cache = None
+        if decision_cache:
+            kv = cache_kv
+            if kv is None and cache_dir is not None:
+                kv = DiskKVStore(cache_dir)
+            sem = (SemanticCache(cache_semantic_eps, cache_semantic_cap)
+                   if cache_semantic_eps > 0.0 else None)
+            if kv is not None or sem is not None:
+                self.cache = DecisionCacheStack(cache_capacity, kv=kv,
+                                                semantic=sem)
+            else:
+                self.cache = DecisionCache(cache_capacity)
         self.cascade_max_depth = cascade_max_depth
         self.fused_cascade = fused_cascade
         self.speculate = speculate
@@ -434,6 +480,47 @@ class TryageEngine:
         choice = choice.cpu().numpy()[:B]
         self.stats.router_time_s += self._now() - t0
         self.stats.router_batches += 1
+        return pred, choice
+
+    @torch.inference_mode()
+    def _embed_batch(self, reqs: list[Request]) -> np.ndarray:
+        """Pooled router embeddings (B, d) f32 for the semantic tier: one
+        bucket-padded encoder pass on the device.  Counts as a router
+        batch (it is most of one)."""
+        B = len(reqs)
+        t0 = self._now()
+        _, (toks,) = self._padded(reqs, lam=False)
+        emb = router_embed(self.router_params, self.rc, {"tokens": toks})
+        emb = emb.float().cpu().numpy()[:B]
+        self.stats.router_time_s += self._now() - t0
+        self.stats.router_batches += 1
+        return emb
+
+    @torch.inference_mode()
+    def _score_from_emb(self, reqs: list[Request], emb: np.ndarray,
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """Finish scoring from precomputed pooled embeddings (the T3
+        probe's encoder pass): the predicted losses from one
+        ``router_score`` launch with zero constraints (``router_head``),
+        then the lambda-weighted constraint add and the argmin on the
+        host in f64, as the JAX engine does (first index wins a tie)."""
+        B = len(reqs)
+        t0 = self._now()
+        Bp = self._bucket(B)
+        embp = np.zeros((Bp, emb.shape[1]), np.float32)
+        embp[:B] = emb
+        router = self.router_params
+        pred = rs_ops.router_head(self._to_device(embp), router.head)
+        tiles = self.stats.router_tiles.setdefault("router_score", {})
+        if Bp not in tiles:
+            tiles[Bp] = rs_ops.decision_plan(Bp, *router.head["w1"].shape)
+        pred = pred.cpu().numpy()[:B]
+        scores = pred.copy()
+        for c in self.constraints:
+            lam = np.array([r.lambdas.get(c.name, 0.0) for r in reqs])
+            scores = scores + lam[:, None] * c.values[None, :]
+        choice = scores.argmin(axis=1)
+        self.stats.router_time_s += self._now() - t0
         return pred, choice
 
     def _use_fused_cascade(self, reqs: list[Request]) -> bool:
@@ -552,8 +639,9 @@ class TryageEngine:
         publishes the new snapshot with a version-bumping swap; the
         decision cache is cleared on swap (the version in the key
         already makes stale verdicts unreachable; clearing reclaims
-        their memory).  Runs with grad on: the engine's card methods
-        run under ``inference_mode``, this one must not."""
+        their memory; T2 keeps its records, which only a replica at
+        their version can read).  Runs with grad on: the engine's card
+        methods run under ``inference_mode``, this one must not."""
         if self.adapt_every <= 0 or self.replay is None:
             return
         while (self.replay.seen - self._fb_at_last_update
@@ -582,9 +670,9 @@ class TryageEngine:
             self.stats.adapt_time_s += self._now() - t0
 
     def _assert_cache_version(self):
-        """Invariant checked after every swap: no surviving
-        decision-cache entry may carry a router version other than the
-        live snapshot's — a stale hit would serve verdicts scored by
+        """Invariant checked after every swap: no entry of a serving
+        tier (T1, T3) may carry a router version other than the live
+        snapshot's — a stale hit would serve verdicts scored by
         superseded parameters."""
         if self.cache is None:
             return

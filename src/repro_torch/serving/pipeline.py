@@ -1,15 +1,22 @@
 """The staged serving pipeline: Route -> Cascade -> Fallback on an
 admission batch, Execute -> Feedback on a per-expert micro-batch.
 
-A port of ``repro.serving.pipeline`` for the exact-cache engine: Route
-probes the T1 ``DecisionCache`` and scores the misses as one batch
-(through the fused cascade kernel when the batch carries cascade
-traffic and the engine allows it); Cascade applies the
+A port of ``repro.serving.pipeline``: Route probes the decision cache
+(the T1 LRU, or the stack's T1 -> T2 exact tiers, counting each hit by
+tier), then, when the semantic tier is on, embeds the exact misses in
+one encoder pass and probes T3 per row; the remaining misses are scored
+as one batch (through the fused cascade kernel when the batch carries
+cascade traffic and the engine allows it, or from the T3 probe's
+embeddings through ``engine._score_from_emb``); Cascade applies the
 abstention/escalation rule to the freshly scored rows and memoises the
-post-cascade verdict; Fallback re-routes rows whose expert the health
-tracker holds unavailable (a strict no-op without one); Execute runs
-the padded expert forward and builds ``Result``s; Feedback publishes
-observed losses to the replay buffer.
+post-cascade verdict in every tier; Fallback re-routes rows whose
+expert the health tracker holds unavailable (a strict no-op without
+one); Execute runs the padded expert forward and builds ``Result``s;
+Feedback publishes observed losses to the replay buffer.
+
+With the semantic tier on, exact misses are scored from the T3 probe's
+embeddings and so never take the fused cascade kernel: their cascade
+runs the staged sigma pass, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ class RouteContext:
 
     ``miss_idx`` lists the rows freshly scored this batch — the only
     rows Cascade touches, because cache hits already carry their
-    post-cascade verdict.  ``fused`` is ``(rows, sigma, esc)`` when Route
-    scored the misses through the fused cascade kernel, else None."""
+    post-cascade verdict.  ``emb`` maps row -> pooled router embedding,
+    filled only when the semantic tier is on (Cascade feeds them back
+    into T3).  ``fused`` is ``(rows, sigma, esc)`` when Route scored the
+    misses through the fused cascade kernel, else None."""
 
     reqs: list[Request]
     pred: np.ndarray | None = None          # (B, M) f32 router L-hat
@@ -46,6 +55,7 @@ class RouteContext:
     fallback_depth: np.ndarray | None = None  # (B,) i64 health fallbacks
     keys: list | None = None
     miss_idx: list[int] = dataclasses.field(default_factory=list)
+    emb: dict | None = None
     fused: tuple | None = None
 
 
@@ -60,7 +70,12 @@ class FlushContext:
 
 
 class RouteStage:
-    """Score an admission batch through the decision cache."""
+    """Score an admission batch through the decision cache.
+
+    Hits return their memoised post-cascade verdict and count under
+    their tier; misses are scored as one (smaller) batch.  The cache key
+    carries the live router version, so verdicts scored by a superseded
+    router can never hit."""
 
     def __init__(self, engine: "TryageEngine"):
         self.eng = engine
@@ -85,17 +100,27 @@ class RouteStage:
                         for r in ctx.reqs]
             misses = []
             for i, key in enumerate(ctx.keys):
-                hit = eng.cache.get(key)
+                hit, tier = eng.cache.lookup(key)
                 if hit is None:
                     misses.append(i)
                 else:
                     (ctx.pred[i], ctx.choice[i], ctx.depth[i],
                      ctx.confidence[i]) = hit
                     ctx.cached[i] = True
+                    eng.stats.cache_tier_hits[tier] += 1
+            if misses and getattr(eng.cache, "semantic", None) is not None:
+                misses = self._semantic_probe(ctx, misses)
             eng.stats.cache_hits += B - len(misses)
             eng.stats.cache_misses += len(misses)
         if misses:
-            mpred, mchoice = self._score_rows(ctx, misses)
+            if ctx.emb is not None:
+                # the T3 probe already embedded these rows: finish the
+                # score from its embeddings (head kernel + host argmin)
+                mpred, mchoice = eng._score_from_emb(
+                    [ctx.reqs[i] for i in misses],
+                    np.stack([ctx.emb[i] for i in misses]))
+            else:
+                mpred, mchoice = self._score_rows(ctx, misses)
             ctx.pred[misses] = mpred
             ctx.choice[misses] = mchoice
         ctx.miss_idx = misses
@@ -117,10 +142,42 @@ class RouteStage:
     def _dropped_lambda_sink(self, names: list) -> None:
         self.eng.stats.cache_key_dropped_lambda += len(names)
 
+    def _semantic_probe(self, ctx: RouteContext,
+                        misses: list[int]) -> list[int]:
+        """T3 pass over the exact-miss rows: one batched embedding pass,
+        then a nearest-neighbour probe per row.  A hit adopts the cached
+        post-cascade verdict (revalidated against the live router
+        version, ``semcache.SemanticCache``) and is promoted into the
+        exact tiers under the row's own key; the remaining rows keep
+        their embeddings in ``ctx.emb`` for scoring and T3 insertion.
+        Returns the rows still missing."""
+        eng = self.eng
+        emb = eng._embed_batch([ctx.reqs[i] for i in misses])
+        ctx.emb = {i: emb[j] for j, i in enumerate(misses)}
+        still = []
+        for j, i in enumerate(misses):
+            entry, status = eng.cache.lookup_semantic(
+                emb[j], ctx.keys[i], eng.router_version)
+            if status != "miss":
+                eng.stats.cache_revalidations += 1
+            if status == "hit":
+                (ctx.pred[i], ctx.choice[i], ctx.depth[i],
+                 ctx.confidence[i]) = entry
+                ctx.cached[i] = True
+                eng.stats.cache_tier_hits["t3"] += 1
+                # the next identical retry is a T1 hit, no encoder pass
+                eng.cache.put(ctx.keys[i], entry[0], entry[1],
+                              int(entry[2]), float(entry[3]))
+                continue
+            if status == "stale":
+                eng.stats.cache_revalidation_rejects += 1
+            still.append(i)
+        return still
+
 
 class CascadeStage:
     """Apply the abstention/escalation rule to freshly scored rows and
-    memoise the post-cascade verdict."""
+    memoise the post-cascade verdict (in every tier the cache has)."""
 
     def __init__(self, engine: "TryageEngine"):
         self.eng = engine
@@ -142,7 +199,14 @@ class CascadeStage:
             ctx.choice[i] = mchoice[j]
             ctx.depth[i] = mdepth[j]
             ctx.confidence[i] = mconf[j]
-            if ctx.keys is not None:
+            if ctx.keys is None:
+                continue
+            if ctx.emb is not None:
+                # semantic tier on: T3 learns this verdict too
+                eng.cache.put(ctx.keys[i], mpred[j], mchoice[j],
+                              int(mdepth[j]), float(mconf[j]),
+                              emb=ctx.emb[i])
+            else:
                 eng.cache.put(ctx.keys[i], mpred[j], mchoice[j],
                               int(mdepth[j]), float(mconf[j]))
         return ctx

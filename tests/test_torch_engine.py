@@ -12,7 +12,8 @@ staged sigma pass, and single-shot without the decision cache and
 without bucket padding.
 
 Exact: expert choice, ``cached``, ``cascade_depth`` and
-``flush_reason`` per uid, and the cache hits (64 with the cache).  Tolerance: loss,
+``flush_reason`` per uid, the cache hits (64 with the cache) and their
+count by tier (``{"t1": 64}``), and the summary's cache block.  Tolerance: loss,
 accuracy and confidence agree to rtol=1e-5, atol=1e-5 (XLA and PyTorch
 on the CPU reduce in different orders).
 """
@@ -116,6 +117,10 @@ def test_engine_matches_jax(tiny_library, weights, cascade, fused, cache):
             a.expert, a.cached, a.cascade_depth, a.flush_reason), uid
     assert teng.stats.cache_hits == jeng.stats.cache_hits == (64 if cache
                                                                else 0)
+    # every hit counts under its tier: T1 on both engines
+    assert dict(teng.stats.cache_tier_hits) == dict(
+        jeng.stats.cache_tier_hits) == ({"t1": 64} if cache else {})
+    assert teng.stats.summary()["cache"] == jeng.stats.summary()["cache"]
     assert teng.stats.escalations == jeng.stats.escalations
     assert dict(teng.stats.bucket_hits) == dict(jeng.stats.bucket_hits)
     uids = sorted(ref)

@@ -23,7 +23,11 @@ against torch autograd of the plain version, bit-identical on a rerun;
 one expert training step on the card against the CPU: loss to rtol
 1e-4, weights within 1e-4 of each leaf's largest magnitude.  The other
 kernels have none, so their wrappers refuse a CUDA input that requires
-grad under grad mode.
+grad under grad mode.  The cache tiers on the card: ``_score_from_emb``
+(one ``router_score`` launch) within 1e-6 of the plain head on the same
+tensors, ``_embed_batch`` within 1e-5 of the CPU's largest magnitude,
+and a ``DiskKVStore``-backed engine answers everything from T2 after a
+restart.
 """
 
 import copy
@@ -523,3 +527,98 @@ def test_serve_on_card_matches_cpu():
         assert r.expert != "mid"
         np.testing.assert_allclose(gpu[uid].loss, r.loss, rtol=1e-4,
                                    atol=1e-4)
+
+
+def _tiny_engines(tmp_dir=None):
+    """The card engine over ``_library`` and a router with an
+    uncertainty head, and the same weights on the CPU."""
+    rc = RouterConfig(n_models=3, vocab_size=64, num_layers=1, d_model=32,
+                      num_heads=2, d_ff=64)
+    lib_cpu = _library("cpu")
+    router_cpu = init_router(rc, seed=9, uncertainty=True, device="cpu")
+    lib_gpu = copy.deepcopy(lib_cpu)
+    for e in lib_gpu.experts:
+        e.params.cuda()
+    router_gpu = copy.deepcopy(router_cpu).cuda()
+    out = []
+    for lib, router, dev in ((lib_cpu, router_cpu, "cpu"),
+                             (lib_gpu, router_gpu, "cuda")):
+        out.append(TryageEngine(lib, router, rc,
+                                [objective.size_constraint(lib),
+                                 objective.recency_constraint(lib)],
+                                max_batch=32, device=dev))
+    return out
+
+
+def _tiny_requests(n, seed=0):
+    rng = np.random.default_rng(seed)
+    mb = mlm_batch(rng.integers(4, 64, size=(n, 32)).astype(np.int32), rng,
+                   0.2, 64)
+    mix = [{}, {"size": 1.0}, {"size": 8.0}, {"recency": 2.0}]
+    return [Request(uid=i, tokens=mb["tokens"][i], targets=mb["targets"][i],
+                    mask=mb["mask"][i], lambdas=mix[i % 4])
+            for i in range(n)]
+
+
+def test_score_from_emb_on_card_launches_router_score():
+    """The semantic tier's scoring from embeddings: one ``router_score``
+    launch (zero constraints) for the predicted losses, within 1e-6 of
+    the plain head on the same CUDA tensors, and the host f64 argmin."""
+    _card()
+    _, eng = _tiny_engines()
+    reqs = _tiny_requests(13)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    emb = torch.randn(13, 32, device="cuda", generator=g)
+    before = rs_ops.router_score_fused.launches
+    pred, choice = eng._score_from_emb(reqs, emb.cpu().numpy())
+    assert rs_ops.router_score_fused.launches == before + 1
+    head = eng.router_params.head
+    with torch.no_grad():
+        want = rs_ops.head_plain(emb, head["w1"], head["b1"], head["w2"],
+                                 head["b2"]).cpu().numpy()
+    np.testing.assert_allclose(pred, want, rtol=0, atol=1e-6)
+    scores = pred.astype(np.float64)
+    for c in eng.constraints:
+        lam = np.array([r.lambdas.get(c.name, 0.0) for r in reqs])
+        scores = scores + lam[:, None] * c.values[None, :]
+    np.testing.assert_array_equal(choice, scores.argmin(1))
+
+
+def test_embed_batch_on_card_matches_cpu():
+    _card()
+    cpu, gpu = _tiny_engines()
+    reqs = _tiny_requests(21)
+    a, b = cpu._embed_batch(reqs), gpu._embed_batch(reqs)
+    assert a.shape == b.shape == (21, 32) and b.dtype == np.float32
+    assert np.abs(b - a).max() <= 1e-5 * np.abs(a).max()
+
+
+def test_disk_tier_on_card_survives_a_restart(tmp_path):
+    """A ``DiskKVStore``-backed card engine, with the semantic tier on,
+    serves the same traffic again after a restart entirely from the
+    exact tiers (T2)."""
+    _card()
+    _, eng = _tiny_engines()
+    lib, router, rc = eng.library, eng.router_params, eng.rc
+    cons = [objective.size_constraint(lib), objective.recency_constraint(lib)]
+    first = {}
+    for run in range(2):
+        eng = TryageEngine(lib, router, rc, cons, max_batch=32,
+                           cache_dir=str(tmp_path), cache_semantic_eps=1e-3,
+                           device="cuda")
+        launches.reset_launch_counts()
+        for r in _tiny_requests(48):
+            eng.submit(r)
+        out = {r.uid: r for r in eng.run()}
+        eng.cache.close()
+        if run == 0:
+            first = out
+            assert launches.launch_counts()["router_score"] > 0
+            continue
+        assert eng.stats.cache_hit_rate == 1.0
+        assert dict(eng.stats.cache_tier_hits) == {"t2": 48}
+        assert eng.stats.router_batches == 0
+        for uid, r in out.items():
+            assert r.expert == first[uid].expert
+            np.testing.assert_array_equal(r.pred_losses,
+                                          first[uid].pred_losses)

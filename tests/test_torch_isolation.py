@@ -55,7 +55,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "models.scan_utils", "kernels.mlstm_scan.ops",
                 "optim.adamw", "core.training", "core.qtable",
                 "core.baselines", "core.pareto", "core.experiment",
-                "core.e2e"):
+                "core.e2e", "serving.kvstore", "serving.semcache",
+                "launch.serve"):
         assert f"repro_torch.{mod}" in names, mod
 
 

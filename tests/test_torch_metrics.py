@@ -8,7 +8,8 @@
   ``serve()`` run (cascade, shedding front end, health tracker,
   injected failures) gives the same text, apart from the two wall-time
   series (``tryage_router_time_seconds_total``,
-  ``tryage_expert_time_seconds_total``).
+  ``tryage_expert_time_seconds_total``); on ``run()`` with the decision
+  cache on, both export the same cache-tier series (T1 hits).
 * ``start_metrics_server(0, ...)`` serves the rendering at ``GET
   /metrics`` and stops cleanly; ``render()`` keeps the exposition
   format invariants of ``tests/test_metrics.py``.
@@ -119,6 +120,36 @@ def test_render_matches_jax_on_the_same_run(tiny_library):
         texts.append(render_fn(eng.stats, health, names))
         assert f"tryage_requests_served_total {len(results)}" in texts[-1]
     assert _without_wall_time(texts[1]) == _without_wall_time(texts[0])
+
+
+def _series(text, name):
+    return [ln for ln in text.splitlines() if name in ln]
+
+
+def test_cache_tier_series_match_jax_on_the_engine_workload(tiny_library):
+    """``run()`` over ``tests/test_torch_engine.py``'s 256-request
+    workload (64 exact repeats) with the decision cache on: both
+    packages export the T1 hits under ``tier="t1"``, and the same
+    revalidation series."""
+    pytest.importorskip("jax")
+    from repro.serving.metrics import render as jax_render
+    from repro_torch.serving import Request as TRequest
+    from torch_serving_util import (JRequest, make_engines, make_weights,
+                                    workload)
+
+    jeng, teng = make_engines(tiny_library, make_weights(tiny_library))
+    names = [e.name for e in tiny_library.experts]
+    for eng, r_cls in ((jeng, JRequest), (teng, TRequest)):
+        for w in workload():
+            eng.submit(r_cls(**w))
+        assert len(eng.run()) == 256
+    ref = jax_render(jeng.stats, None, names)
+    got = render(teng.stats, None, names)
+    for name in ("tryage_cache_tier_hits_total",
+                 "tryage_cache_revalidations_total",
+                 "tryage_cache_revalidation_rejects_total"):
+        assert _series(got, name) == _series(ref, name), name
+    assert 'tryage_cache_tier_hits_total{tier="t1"} 64' in got
 
 
 # ----------------------------- exposition format and the scrape endpoint
