@@ -27,6 +27,19 @@ just before it and read just after:
   ``serve_step``; ``xlstm_crosscheck`` runs a one-unit f32 copy of it at
   full width on the card and on the CPU and compares them, and holds
   decode against a longer prefill for the whole config in f32;
+* ``zoo_serve``: the zoo's dense configs at full width in bf16 with
+  seeded weights drawn on the card, one at a time: ``prefill_step``
+  into the KV caches (capacity prompt + steps), then greedy
+  ``serve_step`` decode: tinyllama-1.1b and qwen1.5-0.5b (4 x 512, 32
+  steps), gemma3-4b (2 x 2048, its 1024-slot rings roll; 32 steps),
+  starcoder2-15b (1 x 4608, past its 4096 window; 16 steps),
+  qwen2-vl-72b with 8 of its 80 layers (embeddings 2 x 1024, 16 token
+  steps) and hubert-xlarge (embeddings 4 x 512, an encoder: prefill
+  only); one attention launch per layer a prefill, none in decode;
+* ``zoo_crosscheck``: f32 at full width, reduced depth: tinyllama (4
+  layers) and gemma3 (one 6-layer unit, a 1100-token prompt) card vs
+  CPU (logits, greedy tokens), and for every decoder decode against a
+  prefill one token longer on the card;
 * ``attention_grad``: the attention backward kernel against torch
   autograd of the plain version at the training shapes, small causal,
   window, softcap and GQA cases, both sides of the switch between its
@@ -60,7 +73,8 @@ just before it and read just after:
 It checks that every kernel of each path was launched in that path's
 run, and times each kernel beside its bound; the router heads also at
 every bucket size the path launches them at, beside the launch floor
-(the device time of an empty kernel, ``csrc/launch_floor.cu``).  Each
+(the device time of an empty kernel, ``csrc/launch_floor.cu``), and
+attention also at the zoo decoders' bf16 prefill shapes beside SDPA.  Each
 phase prints one JSON line; the line before the last is the card's
 name and power limit from ``nvidia-smi``, the last is ``{"ok": true,
 "device": {...}}``.  Any
@@ -70,12 +84,14 @@ Without a CUDA card, or outside a checkout, it exits non-zero at once.
 TF32 is off throughout for PyTorch's own products (it flips near-tie
 argmins); the attention kernels (forward and backward) and the mLSTM
 scan run theirs on the tensor cores in 3xTF32, which keeps f32
-accuracy.  Times: CUDA events over
+accuracy (bf16 attention inputs, exact in TF32, take one pass for
+q k^T and two for P V).  Times: CUDA events over
 back-to-back calls after a warm-up, and the profiler's device time per
 kernel.  Bounds: the larger of the bytes each call must move over 3.35
 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM data sheet); for
 the tensor-core kernels also the larger of the bytes and three times the
-operations over the TF32 tensor-core rate, 495 TFLOP/s (``bound_tc_ms``).
+operations over the TF32 tensor-core rate, 495 TFLOP/s (``bound_tc_ms``);
+for bf16 attention the operations over the bf16 rate, 989 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -97,6 +113,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_TC_FLOPS_PER_S = 495e12   # dense TF32 tensor cores; 3xTF32 takes 3 passes
+BF16_TC_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 CHOICE_GAP = 1e-5          # a choice may differ only below this top-two gap
 ROUTER_TOL = 1e-5          # router heads: pred / sigma vs the plain version
 ATTN_TOL = 2e-5            # attention: online vs full softmax summation order
@@ -141,6 +158,20 @@ ATTN_GRAD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
     (1, 300, 300, 2, 1, 64, True, 64, 0.0),    # long T, causal window
     (1, 300, 140, 2, 2, 8, False, 3, 0.0),     # long T, rows with no key
 ]
+# the zoo's attention at its prefill shapes: (B, S, H, KV, hd, causal,
+# window, softcap, dtype); S past the window where there is one
+ZOO_ATTN_CASES = [
+    (4, 512, 32, 4, 64, True, 0, 0.0, "bfloat16"),        # tinyllama
+    (4, 512, 16, 16, 64, True, 0, 0.0, "bfloat16"),       # qwen1.5-0.5b
+    (2, 2048, 8, 4, 256, True, 1024, 0.0, "bfloat16"),    # gemma3 local
+    (2, 2048, 8, 4, 256, True, 0, 0.0, "bfloat16"),       # gemma3 global
+    (1, 4608, 48, 4, 128, True, 4096, 0.0, "bfloat16"),   # starcoder2
+    (2, 1024, 64, 8, 128, True, 0, 0.0, "bfloat16"),      # qwen2-vl
+    (4, 512, 16, 16, 80, False, 0, 0.0, "bfloat16"),      # hubert
+    (2, 256, 8, 4, 128, False, 0, 30.0, "bfloat16"),      # softcap
+    (1, 1100, 8, 4, 256, True, 1024, 0.0, "float32"),     # gemma3 in f32
+    (1, 1100, 8, 4, 256, True, 0, 0.0, "float32"),
+]
 # training card vs CPU from the same weights: 3 steps' losses and the
 # first step's gradients to this relative error (the weights after 3 Adam
 # steps are held to Adam's reach instead: see card_vs_cpu_training)
@@ -152,6 +183,28 @@ STAGES = ("experts", "qtables", "router", "evaluate")
 ADAPT_HEAD_TOL, ADAPT_ALL_TOL = 1e-5, 1e-4
 DRIFT_TOL = 0.5    # bench_drift: "routed well" = within 0.5 nats of best
 XLSTM_ARCH, XLSTM_B, XLSTM_S, XLSTM_DECODE = "xlstm-1.3b", 4, 512, 32
+# zoo_serve: (arch, fields cut, batch, prompt, decode steps), full width
+# in bf16; only qwen2-vl's depth is cut (145 GB of bf16 weights at 80
+# layers do not fit in 80 GB); hubert is an encoder (prefill only)
+ZOO_SERVE = [("tinyllama-1.1b", None, 4, 512, 32),
+             ("qwen1.5-0.5b", None, 4, 512, 32),
+             ("gemma3-4b", None, 2, 2048, 32),
+             ("starcoder2-15b", None, 1, 4608, 16),
+             ("qwen2-vl-72b", {"num_layers": 8}, 2, 1024, 16),
+             ("hubert-xlarge", None, 4, 512, 0)]
+# zoo_crosscheck, f32 at full width: card vs CPU (arch, layers, prompt,
+# greedy tokens), and decode vs a prefill one longer on the card (arch,
+# layers, batch, prompt; gemma3 and starcoder2 past their windows)
+ZOO_CROSS = [("tinyllama-1.1b", 4, 128, 8), ("gemma3-4b", 6, 1100, 8)]
+# times: the decoders' attention at their bf16 prefill shapes (B, S, H,
+# KV, hd, causal, window, config)
+ZOO_TIMES = [(4, 512, 32, 4, 64, True, 0, "tinyllama-1.1b"),
+             (2, 2048, 8, 4, 256, True, 1024, "gemma3-4b local"),
+             (2, 2048, 8, 4, 256, True, 0, "gemma3-4b global"),
+             (1, 4608, 48, 4, 128, True, 4096, "starcoder2-15b")]
+ZOO_DVP = [("tinyllama-1.1b", 4, 2, 128), ("qwen1.5-0.5b", 4, 2, 128),
+           ("gemma3-4b", 6, 1, 1100), ("starcoder2-15b", 2, 1, 4200),
+           ("qwen2-vl-72b", 2, 1, 128)]
 CROSS_S, CROSS_DECODE = 128, 8
 
 # the README's flag phrases; 192 unique prompts repeat with the same flags
@@ -363,6 +416,44 @@ def parity_phase(torch) -> dict:
         cases.append({"kernel": "flash_attention", "BH": B * H, "S": 128,
                       "hd": hd, "causal": causal, "window": window,
                       "softcap": softcap, "max_abs_err": e})
+    # the zoo's prefill shapes (bf16, hd 64-256, GQA, windows with S past
+    # them) and f32 at hd 256: within one bf16 ulp of each element plus
+    # ATTN_TOL (the kernel's f32 result is within it of the plain
+    # version's before each rounds to bf16); f32 within ATTN_TOL
+    err["flash_attention_bf16_ulps"] = 0.0
+    for (B, S, H, KV, hd, causal, window, softcap,
+         dtype) in ZOO_ATTN_CASES:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(S + hd)
+        q = torch.randn(B, S, H, hd, device="cuda", generator=g).to(dt)
+        k, v = (torch.randn(B, S, KV, hd, device="cuda",
+                            generator=g).to(dt) for _ in range(2))
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+        torch.cuda.synchronize()
+        ref = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+        check(out.dtype == dt, f"flash_attention {dtype} wrote {out.dtype}")
+        diff = (out.float() - ref.float()).abs()
+        e = float(diff.max())
+        case = {"kernel": "flash_attention", "dtype": dtype, "B": B, "S": S,
+                "H": H, "KV": KV, "hd": hd, "causal": causal,
+                "window": window, "softcap": softcap, "max_abs_err": e}
+        if dt == torch.bfloat16:
+            ulp = bf16_ulp(torch, torch.maximum(out.float().abs(),
+                                                ref.float().abs()))
+            ulps = float(((diff - ATTN_TOL).clamp_min(0) / ulp).max())
+            check(ulps <= 1.0, f"flash_attention bf16 {case}: {ulps} ulps "
+                               f"past {ATTN_TOL}")
+            case["max_ulps_past_tol"] = ulps
+            err["flash_attention_bf16_ulps"] = max(
+                err["flash_attention_bf16_ulps"], ulps)
+        else:
+            check(e <= ATTN_TOL, f"flash_attention f32 {case}: max abs err "
+                                 f"{e}")
+            err["flash_attention"] = max(err["flash_attention"], e)
+        cases.append(case)
+        del q, k, v, out, ref, diff
     for B, S, H, dh, carried in ((1, 64, 1, 16, False), (2, 96, 2, 64, True),
                                  (XLSTM_B, XLSTM_S, 4, 1024, False)):
         args = mlstm_inputs(torch, B, S, H, dh, carried, seed=S + dh)
@@ -387,10 +478,16 @@ def parity_phase(torch) -> dict:
                 err["mlstm_scan"] = max(err["mlstm_scan"], e)
         cases.append(case)
     emit("parity", tolerances={"router": ROUTER_TOL, "attention": ATTN_TOL,
+                               "attention_bf16": "1 bf16 ulp + attention",
                                "choice_gap": CHOICE_GAP,
                                "mlstm_rel_to_max": MLSTM_REL_TOL},
          max_abs_err=err, cases=cases)
     return err
+
+
+def bf16_ulp(torch, x):
+    """One bf16 unit in the last place of each element of ``x`` (f32)."""
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(2.0 ** -126))) - 7)
 
 
 def mlstm_inputs(torch, B, S, H, dh, carried, seed):
@@ -784,20 +881,21 @@ def xlstm_prompts(corpus, B: int, S: int, seed: int = 0):
     return np.clip(toks, 0, vocab - 1)
 
 
-def greedy(torch, model, tokens, steps, device):
+def greedy(torch, model, tokens, steps, device, kernel="mlstm_scan"):
     """prefill_step, then ``steps`` serve_step calls.  Returns (last
     prefill logits, generated tokens (B, steps + 1), per-step decode
-    logits, final state, mlstm_scan launches in the prefill, in the
+    logits, final state, ``kernel``'s launches in the prefill, in the
     decode)."""
     from repro_torch.kernels import launches
     from repro_torch.launch.steps import prefill_step, serve_step
     from repro_torch.models import model as model_lib
+    S = tokens.shape[1]
     launches.reset_launch_counts()
-    last, state = prefill_step(model, {"tokens": tokens}, device=device)
-    n_prefill = launches.launch_counts()["mlstm_scan"]
+    last, state = prefill_step(model, {"tokens": tokens},
+                               cache_capacity=S + steps + 1, device=device)
+    n_prefill = launches.launch_counts()[kernel]
     tok = last.argmax(-1).to(torch.int32)[:, None]
     out, dec_logits = [tok], []
-    S = tokens.shape[1]
     with torch.inference_mode():
         for t in range(steps):
             # the step's logits, for the checks; serve_step returns tokens
@@ -805,8 +903,20 @@ def greedy(torch, model, tokens, steps, device):
             dec_logits.append(lg.float())
             tok, state = serve_step(model, state, tok, S + t, device=device)
             out.append(tok)
-    n_decode = launches.launch_counts()["mlstm_scan"] - n_prefill
+    n_decode = launches.launch_counts()[kernel] - n_prefill
     return last, torch.cat(out, 1), dec_logits, state, n_prefill, n_decode
+
+
+def first_token_diff(torch, toks_g, toks_c, logits_c):
+    """(the first step whose card and CPU tokens differ, or None; whether
+    at every row that differs there the CPU's top-two logit gap is under
+    TOKEN_GAP).  After a differing token the rest follow other inputs."""
+    for t in range(toks_c.shape[1]):
+        rows = (toks_g[:, t].cpu() != toks_c[:, t]).nonzero().flatten()
+        if rows.numel():
+            top2 = logits_c[t][rows].topk(2, dim=-1).values
+            return t, bool((top2[:, 0] - top2[:, 1] < TOKEN_GAP).all())
+    return None, False
 
 
 def layer_times(torch, model, fn) -> dict:
@@ -984,7 +1094,8 @@ def decode_vs_prefill(torch, model, prompt, jitter=False):
     from repro_torch.models import model as model_lib
     S = prompt.shape[1]
     with torch.inference_mode():
-        logits, st = model_lib.prefill(model, {"tokens": prompt})
+        logits, st = model_lib.prefill(model, {"tokens": prompt},
+                                       cache_capacity=S + 1)
     tok = logits[:, -1:].argmax(-1)
     del logits
     dec, dec_h = last_hidden(torch, model, lambda: model_lib.decode_step(
@@ -1056,14 +1167,8 @@ def xlstm_crosscheck_phase(torch, corpus) -> dict:
             e_state = max(e_state, e)
     # tokens: identical, or first differing where the CPU's top-two
     # logit gap is under TOKEN_GAP (the rest then follow other inputs)
-    logits_c = [last_c] + dec_c
-    first_diff, excused = None, False
-    for t in range(toks_c.shape[1]):
-        if not torch.equal(toks_g[:, t].cpu(), toks_c[:, t]):
-            top2 = logits_c[t][0].topk(2).values
-            first_diff = t
-            excused = float(top2[0] - top2[1]) < TOKEN_GAP
-            break
+    first_diff, excused = first_token_diff(torch, toks_g, toks_c,
+                                           [last_c] + dec_c)
     check(first_diff is None or excused,
           f"card and CPU tokens differ at step {first_diff}")
 
@@ -1117,6 +1222,203 @@ def xlstm_crosscheck_phase(torch, corpus) -> dict:
           deep["one_ulp_logit_change"],
           f"decode vs prefill of the f32 config: logits {deep['max_abs_err']}"
           f", one ulp moves them {deep['one_ulp_logit_change']}")
+    return out
+
+
+# ------------------------------------------------------ phase 4a (the zoo)
+
+def zoo_tokens(torch, cfg, B, S, seed):
+    """Token ids uniform over the vocab, seeded, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                         generator=g, dtype=torch.int32)
+
+
+def zoo_inputs(torch, cfg, B, S, seed):
+    """A prefill batch on the card: token ids, or for the modality stubs
+    embeddings with the embedding table's scale (seeded)."""
+    from repro_torch.launch import specs
+    if not specs.takes_embeds(cfg):
+        return {"tokens": zoo_tokens(torch, cfg, B, S, seed)}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"embeds": (torch.randn(B, S, cfg.d_model, device="cuda",
+                                   generator=g) * cfg.d_model ** -0.5)
+            .to(cfg.torch_dtype)}
+
+
+def zoo_one(torch, arch, cut, B, S, steps, seed):
+    """Serve one config at full width in bf16 (weights drawn on the card):
+    a warm-up, then a timed prefill_step with cache_capacity = S + steps
+    and ``steps`` timed serve_step calls.  Returns the config's record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch import specs
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import INPUT_SHAPES
+
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
+    decodes = specs.applicable(cfg, INPUT_SHAPES["decode_32k"])[0]
+    steps = steps if decodes else 0
+    t0 = time.perf_counter()
+    model = model_lib.init_model(cfg, seed=seed, device="cuda")
+    batch = zoo_inputs(torch, cfg, B, S, seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cap = S + steps
+    # warm-up: one prefill and one decode step
+    last, st = prefill_step(model, batch, cache_capacity=cap)
+    if decodes:
+        serve_step(model, st, last.argmax(-1).to(torch.int32)[:, None], S)
+    del last, st
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    last, state = prefill_step(model, batch, cache_capacity=cap)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    n_prefill = launches.launch_counts()["flash_attention"]
+    tok = last.argmax(-1).to(torch.int32)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        tok, state = serve_step(model, state, tok, S + t)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    n_decode = launches.launch_counts()["flash_attention"] - n_prefill
+    peak = torch.cuda.max_memory_allocated()
+    generated = torch.cat(generated, 1)
+
+    check(bool(torch.isfinite(last).all()), f"{arch}: non-finite logits")
+    check(n_prefill == cfg.num_layers and n_decode == 0,
+          f"{arch}: flash_attention launched {n_prefill} times in the "
+          f"prefill (want {cfg.num_layers}) and {n_decode} in decode")
+    windows = [attn_lib.layer_window(cfg, i) for i in range(cfg.num_layers)]
+    slots = [x["k"].shape[1] for x in state]
+    check(slots == [min(w, cap) if w else cap for w in windows],
+          f"{arch}: cache slots {sorted(set(slots))}")
+    check(all(x["k"].dtype == cfg.torch_dtype for x in state),
+          f"{arch}: cache not in {cfg.dtype}")
+    check(generated.shape == (B, steps + 1) and bool(
+        ((generated >= 0) & (generated < cfg.vocab_size)).all()),
+        f"{arch}: bad generated tokens")
+    name = "embeds" if "embeds" in batch else "tokens"
+    prof_prefill = device_profile(
+        torch, lambda: prefill_step(model, batch, cache_capacity=cap),
+        prefill_s * 1e3,
+        match={"flash_attention": SOURCES["flash_attention"][2]})
+    prof_decode = (device_profile(
+        torch, lambda: serve_step(model, state, tok, S + steps),
+        decode_s * 1e3 / steps) if steps else None)
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "layers_in_config": full_layers, "cut": cut or None,
+           "params": model_lib.count_params(model), "dtype": cfg.dtype,
+           "prefill_input": name, "batch": B, "prompt_len": S,
+           "decode_steps": steps, "cache_capacity": cap,
+           "ring_slots": sorted({n for n, w in zip(slots, windows) if w}),
+           "setup_s": setup_s, "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": B * S / prefill_s,
+           "decode_ms_per_step": decode_s * 1e3 / steps if steps else None,
+           "decode_tokens_per_s": B * steps / decode_s if steps else None,
+           "peak_memory_bytes": peak,
+           "flash_attention_launches_per_prefill": n_prefill,
+           "flash_attention_launches_decode": n_decode,
+           "profiled_prefill": prof_prefill,
+           "profiled_decode_step": prof_decode,
+           "first_tokens": generated[:, :8].cpu().tolist()}
+    del model, state, batch, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_serve_phase(torch) -> dict:
+    """Each dense config of the zoo at full width, one at a time (each
+    freed before the next): prefill, then greedy decode (hubert, an
+    encoder, prefill only)."""
+    runs = [zoo_one(torch, arch, cut, B, S, steps, seed=i)
+            for i, (arch, cut, B, S, steps) in enumerate(ZOO_SERVE)]
+    launches = {r["arch"]: r["flash_attention_launches_per_prefill"]
+                for r in runs}
+    emit("zoo_serve", runs=runs)
+    return {"launches": sum(launches.values()), "by_arch": launches}
+
+
+def zoo_crosscheck_phase(torch) -> dict:
+    """f32 at full width, reduced depth.  Card (kernel) vs CPU (plain
+    versions) on the same weights (drawn on the card, deep-copied to the
+    CPU) for tinyllama (4 layers) and gemma3 (one 6-layer unit, a prompt
+    past its 1024 window); then on the card, for every decoder, decode
+    one token from a prefill's cache against a prefill one token longer
+    (the reference's tolerance)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    card_cpu = []
+    for arch, layers, S, steps in ZOO_CROSS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        t0 = time.perf_counter()
+        gpu = model_lib.init_model(cfg, seed=11, device="cuda")
+        cpu = copy.deepcopy(gpu).cpu()
+        prompt = zoo_tokens(torch, cfg, 1, S, seed=12)
+        res = {"setup_s": time.perf_counter() - t0}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, None)):
+            t1 = time.perf_counter()
+            res[name] = greedy(torch, model, prompt.to(dev or "cuda"),
+                               steps - 1, dev, kernel="flash_attention")
+            res[name + "_s"] = time.perf_counter() - t1
+        last_c, toks_c, dec_c, _, pre_c, _ = res["cpu"]
+        last_g, toks_g, _, _, pre_g, dcd_g = res["cuda"]
+        check(pre_c == 0 and (pre_g, dcd_g) == (layers, 0),
+              f"{arch}: flash_attention launches cpu {pre_c}, card {pre_g} "
+              f"+ {dcd_g}")
+        e = float((last_g.cpu() - last_c).abs().max()) / float(
+            last_c.abs().max())
+        check(e <= XLSTM_REL_TOL, f"{arch}: prefill logits rel err {e}")
+        first_diff, excused = first_token_diff(torch, toks_g, toks_c,
+                                               [last_c] + dec_c)
+        check(first_diff is None or excused,
+              f"{arch}: card and CPU tokens differ at step {first_diff}")
+        card_cpu.append({"arch": arch, "layers": layers, "prompt_len": S,
+                         "tokens": steps, "launches_prefill": pre_g,
+                         "logits_rel_err": e,
+                         "tokens_identical": first_diff is None,
+                         "first_token_diff": first_diff,
+                         "near_tie_excused": excused,
+                         "setup_s": res["setup_s"], "cpu_s": res["cpu_s"],
+                         "card_s": res["cuda_s"]})
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    dvp = []
+    for arch, layers, B, S in ZOO_DVP:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        model = model_lib.init_model(cfg, seed=13, device="cuda")
+        prompt = zoo_tokens(torch, cfg, B, S, seed=14)
+        r = decode_vs_prefill(torch, model, prompt)
+        check(r["close"], f"{arch}: decode vs prefill max abs err "
+                          f"{r['max_abs_err']}")
+        dvp.append({"arch": arch, "layers": layers, "batch": B,
+                    "prompt_len": S, "max_abs_err": r["max_abs_err"],
+                    "logit_max_abs": r["logit_max_abs"],
+                    "layer_err": r["layer_err"]})
+        del model
+        torch.cuda.empty_cache()
+    out = {"dtype": "f32", "card_vs_cpu": card_cpu,
+           "decode_vs_prefill": dvp,
+           "tolerances": {"rel_to_max": XLSTM_REL_TOL,
+                          "token_gap": TOKEN_GAP,
+                          "decode_atol": DECODE_ATOL,
+                          "decode_rtol": DECODE_RTOL}}
+    emit("zoo_crosscheck", **out)
     return out
 
 
@@ -2055,6 +2357,7 @@ def times_phase(torch, launches_per_run: dict, err: dict,
             entry["library_max_abs_err"] = lib_err()
         (kernels if n < len(rows) else extra_out).append(entry)
     emit("times", kernels=kernels, extra_shapes=extra_out,
+         zoo_prefill_attention=zoo_attention_times(torch, F, fa_ops),
          launch_floor=launch_floor(torch, rs_ops.decision_plan(32, d, hh)),
          router_buckets=router_buckets(
              torch, rs_ops, rc_ops, d, hh, M, n_c),
@@ -2065,8 +2368,85 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                 "library_max_abs_err: the library call against the plain "
                 "version; launch_floor: an empty kernel through the "
                 "wrappers' launch path, at one warp and at the "
-                "router_score grid and block for B=32")
+                "router_score grid and block for B=32; "
+                "zoo_prefill_attention: the same over 20 calls after 3 "
+                "(the plain version 3 after 1), bound at the bf16 tensor "
+                "cores' rate for the pairs the masks leave")
     return kernels
+
+
+def attention_pairs(S, causal, window) -> int:
+    """(query, key) pairs that the masks leave, for S queries over S keys:
+    the work a causal or window call's data needs."""
+    total = 0
+    for row in range(S):
+        lo = max(0, row - window + 1) if window > 0 else 0
+        hi = row + 1 if causal else S
+        total += max(0, hi - lo)
+    return total
+
+
+def zoo_attention_times(torch, F, fa_ops) -> list:
+    """The attention kernel at the zoo decoders' bf16 prefill shapes:
+    CUDA events and profiler device time beside the plain version,
+    SDPA on the same bf16 inputs and mask (its K/V repeated to H heads
+    and transposed to (B, H, S, hd) beforehand), and the bound: bytes
+    (q, k, v read, o written) over 3.35 TB/s or the unmasked pairs'
+    4 hd operations a head over the bf16 tensor cores' 989 TFLOP/s,
+    the larger.  SDPA rounds P to bf16 for its P V product; the kernel
+    keeps P in f32 (two TF32 passes)."""
+    out = []
+    for B, S, H, KV, hd, causal, window, label in ZOO_TIMES:
+        g = torch.Generator(device="cuda").manual_seed(S + hd)
+        q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+        k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g)
+                .bfloat16() for _ in range(2))
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (a.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for a in (k, v))
+        mask = None
+        if window > 0:
+            i = torch.arange(S, device="cuda")
+            mask = ((i[None, :] <= i[:, None]) if causal else True) & (
+                i[None, :] > i[:, None] - window)
+
+        def sdpa(qh=qh, kh=kh, vh=vh, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask,
+                is_causal=causal and mask is None)
+
+        def kern(q=q, k=k, v=v, causal=causal, window=window):
+            return fa_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+
+        def plain(q=q, k=k, v=v, causal=causal, window=window):
+            return fa_ops.attention_plain(q, k, v, causal=causal,
+                                          window=window)
+
+        ref = plain().float()
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        flops = 4 * B * H * hd * attention_pairs(S, causal, window)
+        bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
+        lib_k = profiled_kernels(torch, sdpa)
+        out.append({
+            "config": label, "dtype": "bfloat16",
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                      "causal": causal, "window": window},
+            "ms": events_ms(torch, kern, iters=20, warmup=3),
+            "device_ms": profiled_ms(torch, kern, SOURCES[
+                "flash_attention"][2], iters=10),
+            "plain_ms": events_ms(torch, plain, iters=3, warmup=1),
+            "library_ms": events_ms(torch, sdpa, iters=20, warmup=3),
+            "library_device_ms": sum(lib_k.values()) or None,
+            "library_kernel": (max(lib_k, key=lib_k.get)[:80]
+                               if lib_k else None),
+            "bound_ms": bms, "bound_by": by,
+            "max_abs_err": float((kern().float() - ref).abs().max()),
+            "library_max_abs_err": float(
+                (sdpa().transpose(1, 2).float() - ref).abs().max())})
+        del q, k, v, qh, kh, vh, mask, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def head_cost(B, d, hh, M, n_c, cascade) -> tuple[int, int]:
@@ -2146,6 +2526,8 @@ def main() -> int:
     serve_path_phase(torch, setup, run_res, main, info["nvidia_smi"])
     xlstm, corpus = xlstm_serve_phase(torch)
     xlstm_crosscheck_phase(torch, corpus)
+    zoo_serve_phase(torch)
+    zoo_crosscheck_phase(torch)
     err["flash_attention_bwd"] = attention_grad_phase(torch)
     train = train_path_phase(torch)
     adapt_path_phase(torch)

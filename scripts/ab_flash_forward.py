@@ -4,8 +4,9 @@ one process on one card.
 
     python3 scripts/ab_flash_forward.py OTHER_TREE [--rounds N]
 
-Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` of this
-checkout and of ``OTHER_TREE`` (for example the parent commit, unpacked
+Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` (with
+``flash_attention_bf16.cu`` where the tree has it) of this checkout and
+of ``OTHER_TREE`` (for example the parent commit, unpacked
 with ``git archive``) with the flags of ``kernels/build.py``, loads both
 with ctypes, and times the serving forward (no log-sum-exp written) at
 the router's shape (B, S, H, hd) = (32, 128, 4, 32), non-causal, in
@@ -32,16 +33,24 @@ SHAPE = (32, 128, 4, 32)
 def build(tree: Path, out: Path) -> ctypes.CDLL:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kbuild
-    src = tree / "src/repro_torch/kernels/csrc/flash_attention.cu"
+    csrc = tree / "src/repro_torch/kernels/csrc"
+    src = csrc / "flash_attention.cu"
+    # a tree with bf16 inputs builds their instances in a second source
+    srcs = [str(p) for p in (src, csrc / "flash_attention_bf16.cu")
+            if p.exists()]
     subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-shared",
-                    "-o", str(out), str(src)], check=True,
+                    "-o", str(out), *srcs], check=True,
                    capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(out))
     fn = lib.tryage_flash_attention
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # a tree whose forward writes the log-sum-exp takes one more pointer
-    with_lse = "float* o, float* lse" in src.read_text()
-    fn.argtypes = [P] * (5 if with_lse else 4) + [I] * 8 + [F] * 2 + [P]
+    # a tree whose forward writes the log-sum-exp takes one more pointer,
+    # and one that takes bf16 inputs a type flag after the scale
+    text = src.read_text()
+    with_lse = "float* lse" in text
+    lib.with_dtype = "int bf16" in text
+    fn.argtypes = ([P] * (5 if with_lse else 4) + [I] * 8 + [F] * 2
+                   + [I] * lib.with_dtype + [P])
     fn.restype = ctypes.c_int
     lib.with_lse = with_lse
     return lib
@@ -70,8 +79,9 @@ def main() -> int:
             ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
             if lib.with_lse:
                 ptrs.append(None)
+            flags = [0] * lib.with_dtype     # f32 inputs
             err = lib.tryage_flash_attention(*ptrs, B, S, S, H, H, hd, 0, 0,
-                                             0.0, hd ** -0.5, stream)
+                                             0.0, hd ** -0.5, *flags, stream)
             if err:
                 raise RuntimeError(f"launch error {err}")
 

@@ -25,4 +25,5 @@ CONFIG = ModelConfig(
     moe_pattern=(False,) * 8,
     tie_embeddings=True,
     norm_kind="layernorm",
+    source="arXiv:2405.04517",
 )

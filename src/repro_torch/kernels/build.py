@@ -27,8 +27,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "mlstm_scan.cu", "launch_floor.cu")
-HEADERS = ("common.cuh", "mma_tf32.cuh", "router_head.cuh")
+           "flash_attention_bf16.cu", "flash_attention_bwd.cu",
+           "mlstm_scan.cu", "launch_floor.cu")
+HEADERS = ("common.cuh", "mma_tf32.cuh", "router_head.cuh",
+           "flash_attention.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -45,9 +47,9 @@ SIGNATURES = {
     # | pred sigma choice esc | B d hh M n_c threads k_groups | stream
     "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 7 + [_P],
     # q k v | o lse (null: not written) | B S T H KV hd causal window
-    # | softcap scale | stream
+    # | softcap scale | bf16 (0: f32 inputs) | stream
     "tryage_flash_attention": [_P] * 3 + [_P] * 2 + [_I] * 8 + [_F] * 2
-    + [_P],
+    + [_I] + [_P],
     # q k v dO lse | rows (workspace, null up to 128 keys) dq dk dv
     # | B S T H KV hd causal window | softcap scale | stream
     "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 4 + [_I] * 8

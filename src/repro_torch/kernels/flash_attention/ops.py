@@ -16,12 +16,16 @@ attention; all five products in 3xTF32, one launch up to ``BLOCK_KEYS``
 keys, two above); ``flash_attention`` runs forward and backward kernels
 as one ``torch.autograd.Function`` when an input requires grad.
 
-Bound on the H100: at the main path's shapes the f32 operations (4*S*T*hd
-per head, about 4 us for a router layer at B=32 on the CUDA cores); the
-kernel runs both products on the tensor cores in 3xTF32, which keeps
-f32 accuracy, with the online softmax in registers and K/V tiles
-staged in shared memory with cp.async, so each block reads K and V
-once.  head_dim must be a multiple of 8 up to 128.
+Bound on the H100: at the router's shapes the f32 operations (4*S*T*hd
+per head, about 4 us for a router layer at B=32 on the CUDA cores); at
+the zoo's bf16 prefill shapes the tensor cores' operations.  The kernel
+runs both products on the TF32 tensor cores: 3xTF32 for f32 inputs,
+which keeps f32 accuracy; for bf16 inputs (exact in TF32) one pass for
+q k^T and two for P V (P stays f32).  The online softmax is in
+registers and K/V tiles are staged in shared memory with cp.async, so
+each block reads K and V once.  q, k, v are f32 or bf16 (all one type;
+the output takes it), head_dim a multiple of 8 up to 256.  The backward
+kernel takes f32 up to head_dim 128 and refuses the rest.
 """
 
 from __future__ import annotations
@@ -33,7 +37,11 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.3819763e38  # the Pallas kernel's mask fill
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# the backward kernel (csrc/flash_attention_bwd.cu) is f32 up to hd 128;
+# bf16 and wider heads are the zoo's training (ROADMAP.md)
+MAX_HEAD_DIM_BWD = 128
+DTYPES = (torch.float32, torch.bfloat16)
 # keys of one block of the backward kernel (csrc/flash_attention_bwd.cu
 # kBlockKeys): up to this many keys it runs as one launch; above, a
 # first launch writes each row's sums to a (B, H, S, 2) workspace
@@ -74,8 +82,21 @@ def _check(q, k, v):
                          f"q {tuple(q.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError("flash_attention: q, k, v must be float32")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
+                        f"all bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_backward(q):
+    """Raise for what the backward kernel does not take (bf16, hd > 128),
+    on any device, before anything runs."""
+    hd = q.shape[-1]
+    if q.dtype != torch.float32 or hd > MAX_HEAD_DIM_BWD:
+        raise NotImplementedError(
+            f"flash_attention backward: {q.dtype} at head_dim {hd}; the "
+            f"backward kernel takes float32 up to head_dim "
+            f"{MAX_HEAD_DIM_BWD} (training the zoo in bf16 and at wider "
+            f"heads is ROADMAP.md queue 1, item 14)")
 
 
 def _kernel_inputs(*tensors):
@@ -87,7 +108,7 @@ def _kernel_inputs(*tensors):
 
 
 def _check_head_dim(hd):
-    if hd > MAX_HEAD_DIM or hd % 8:
+    if hd > MAX_HEAD_DIM or hd % 8 or hd < 8:
         raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
                          f"of 8 and at most {MAX_HEAD_DIM}")
 
@@ -105,7 +126,7 @@ def _forward(q, k, v, causal, window, softcap, with_lse):
         "tryage_flash_attention", q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
         B, S, T, H, KV, hd, int(causal), int(window), float(softcap),
-        1.0 / math.sqrt(hd))
+        1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16))
     flash_attention.launches += 1
     return o, lse
 
@@ -126,8 +147,10 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
     (B, H, S) and the output gradient ``do``: ``csrc/flash_attention_bwd.cu``
     on CUDA tensors (one launch up to ``BLOCK_KEYS`` keys; above, a
     first launch for the row sums and dQ, then dK and dV), the plain
-    version's autograd on CPU ones (``lse`` unused there)."""
+    version's autograd on CPU ones (``lse`` unused there).  f32 up to
+    head_dim 128 on either device: anything else raises."""
     _check(q, k, v)
+    _check_backward(q)
     if q.device.type == "cpu":
         return attention_grad_plain(q, k, v, do, causal=causal,
                                     window=window, softcap=softcap)
@@ -157,10 +180,12 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel (keeping its log-sum-exp) and the backward
-    kernel as one differentiable op on CUDA tensors."""
+    kernel as one differentiable op on CUDA tensors (f32, head_dim up to
+    128: it refuses the rest before the forward runs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
+        _check_backward(q)
         o, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
         ctx.save_for_backward(q, k, v, lse)
         ctx.masks = (causal, window, softcap)

@@ -24,12 +24,17 @@ def _on_device(model, device) -> torch.device:
 
 
 @torch.inference_mode()
-def prefill_step(model, batch, *, device=None):
-    """batch: {"tokens": (B, S) ints}.  Returns (the last position's
-    logits (B, V) in f32, per-layer states)."""
+def prefill_step(model, batch, *, cache_capacity=None, device=None):
+    """batch: {"tokens": (B, S) ints} or, for the modality stubs,
+    {"embeds": (B, S, d)}.  Returns (the last position's logits (B, V)
+    in f32, per-layer states); full-attention caches hold
+    ``cache_capacity`` slots (default S: pass S + the tokens to
+    decode)."""
     dev = _on_device(model, device)
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    logits, state = model_lib.prefill(model, {"tokens": tokens})
+    name = "embeds" if "embeds" in batch else "tokens"
+    inputs = {name: torch.as_tensor(batch[name], device=dev)}
+    logits, state = model_lib.prefill(model, inputs,
+                                      cache_capacity=cache_capacity)
     return logits[:, -1].float(), state
 
 

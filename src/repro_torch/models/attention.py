@@ -1,10 +1,20 @@
-"""Full-sequence grouped-query attention for the dense encoder.
+"""Grouped-query attention: full-sequence (train / encode / prefill) and
+cached single-token decode (``repro.models.attention``).
 
 Parameters keep the JAX package's layouts: wq (d, H, hd), wk/wv
-(d, KV, hd), wo (H, hd, d).  The attention itself goes through
+(d, KV, hd), wo (H, hd, d).  Full-sequence attention goes through
 ``kernels.flash_attention.flash_attention``: the CUDA kernel on the
 card, its plain version on the CPU.  (The JAX engine computes the same
 function with ``attn_impl="xla"``; the port puts it on the kernel.)
+
+Decode attends one new token to a KV cache (B, T, KV, hd).  The JAX
+package computes it with XLA (``_sdpa_chunked``), outside any Pallas
+kernel, so here it stays plain PyTorch, with the reference's casts: the
+q k^T product in the activations' type then f32, softcap and softmax
+in f32, the weights cast to v's type for the second product.  A
+sliding-window layer's cache is a ring of ``window`` slots with slot ==
+absolute position % window; RoPE is applied at write time, so the ring's
+order does not matter (validity is masked from absolute positions).
 """
 
 from __future__ import annotations
@@ -14,9 +24,9 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import NEG_INF, flash_attention
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import apply_rope, trunc_normal
+from repro_torch.models.layers import apply_mrope, apply_rope, trunc_normal
 
 
 def init_attention(gen, cfg: ModelConfig, dtype=torch.float32):
@@ -40,19 +50,91 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     v = torch.einsum("...d,dhk->...hk", x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if cfg.attn.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.attn.rope_theta)
-        k = apply_rope(k, positions, cfg.attn.rope_theta)
+    a = cfg.attn
+    if a.use_mrope:
+        q = apply_mrope(q, positions, a.mrope_sections, a.rope_theta)
+        k = apply_mrope(k, positions, a.mrope_sections, a.rope_theta)
+    elif a.rope_theta > 0:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
     return q, k, v
 
 
 def attend_full(p, x, cfg: ModelConfig, positions, window: int = 0):
-    """Full-sequence attention over x (B, S, d); returns (B, S, d)."""
+    """Full-sequence attention over x (B, S, d).  Returns ((B, S, d),
+    (k, v)): the keys and values (B, S, KV, hd), after RoPE, that a
+    prefill keeps as its cache."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     a = cfg.attn
     out = flash_attention(q, k, v, causal=a.causal, window=window,
                           softcap=a.softcap)
-    return torch.einsum("...hk,hkd->...d", out, p["wo"])
+    return torch.einsum("...hk,hkd->...d", out, p["wo"]), (k, v)
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: ModelConfig, dtype,
+                  device=None) -> dict:
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, max_len, KV, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_cache_from_kv(k, v, window: int, dtype, capacity=None) -> dict:
+    """The decode cache from a prefill's (B, S, KV, hd) keys and values.
+
+    A full-attention layer keeps ``capacity`` slots (default S; pass S +
+    the tokens still to decode), zero past S.  A window layer keeps the
+    ring of ``window`` slots with slot == absolute position % window:
+    zero-padded when S < window, else the last ``window`` positions
+    rolled by S % window."""
+    S = k.shape[1]
+    if window <= 0:
+        cap = capacity or S
+    elif S <= window:
+        cap = window
+    else:
+        shift = S % window
+        return {"k": torch.roll(k[:, -window:], shift, 1).to(dtype),
+                "v": torch.roll(v[:, -window:], shift, 1).to(dtype)}
+    pad = (0, 0, 0, 0, 0, cap - S)
+    return {"k": nn.functional.pad(k, pad).to(dtype),
+            "v": nn.functional.pad(v, pad).to(dtype)}
+
+
+def _repeat_kv(k, v, H: int):
+    G = H // k.shape[2]
+    if G == 1:
+        return k, v
+    return k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+
+
+def attend_decode(p, x, cache: dict, index: int, cfg: ModelConfig,
+                  positions, window: int = 0):
+    """One token x (B, 1, d) at absolute position ``index`` against the
+    cache k/v (B, T, KV, hd).  Returns ((B, 1, d), a new cache with the
+    token's k/v at slot index % T); the given cache is left as it is,
+    as in the JAX package."""
+    q, k1, v1 = _project_qkv(p, x, cfg, positions)
+    T = cache["k"].shape[1]
+    w = index % T
+    k, v = (torch.cat([c[:, :w], new.to(c.dtype), c[:, w + 1:]], 1)
+            for c, new in ((cache["k"], k1), (cache["v"], v1)))
+    kr, vr = _repeat_kv(k, v, cfg.num_heads)
+    kj = torch.arange(T, device=x.device)
+    ok = (kj <= index) | (index >= T)
+    if 0 < window < T:
+        ok &= kj > index - window
+    bias = torch.where(ok, 0.0, NEG_INF)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # the reference's casts: the product in the activations' type, then
+    # f32 for the scale, softcap and softmax, and back to v's type
+    s = torch.einsum("bshd,bthd->bhst", q, kr).float() * scale
+    softcap = cfg.attn.softcap
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    probs = torch.softmax(s + bias, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(vr.dtype), vr)
+    return torch.einsum("...hk,hkd->...d", out, p["wo"]), {"k": k, "v": v}
 
 
 def layer_window(cfg: ModelConfig, layer_idx: int) -> int:

@@ -1,7 +1,8 @@
 """Per-layer blocks (``repro.models.blocks``): pre-norm mixer of kind
 ``"attn"``, ``"mlstm"`` or ``"slstm"`` with its residual, then, when
-``d_ff > 0``, a pre-norm dense MLP with its residual.  MoE and Mamba
-blocks come with the rest of the model zoo."""
+``d_ff > 0``, a pre-norm dense MLP with its residual.  Attention
+prefill builds the layer's KV cache, decode steps against it.  MoE and
+Mamba blocks come with the rest of the model zoo."""
 
 from __future__ import annotations
 
@@ -42,40 +43,63 @@ class Block(nn.ModuleDict):
         self.kind = kind
         self.layer_idx = layer_idx
 
-    def forward(self, x, *, mode, positions, state=None):
+    def forward(self, x, *, mode, positions, state=None, index=None,
+                cache_capacity=None):
         return apply_block(self, x, self.cfg, self.kind, mode=mode,
                            layer_idx=self.layer_idx, positions=positions,
-                           state=state)
+                           state=state, index=index,
+                           cache_capacity=cache_capacity)
 
 
-def init_block_state(cfg: ModelConfig, kind: str, batch: int, device=None):
-    """Decode-time recurrent state of one layer."""
+def init_block_state(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int = 0, device=None, layer_idx: int = 0):
+    """Decode-time state of one layer: the recurrent state, or a zero KV
+    cache of ``cache_len`` slots, ``min(cache_len, window)`` for a
+    sliding-window layer (its ring)."""
+    if kind == "attn":
+        window = attn_lib.layer_window(cfg, layer_idx)
+        if window > 0:
+            cache_len = min(cache_len, window)
+        return attn_lib.init_kv_cache(batch, cache_len, cfg, cfg.torch_dtype,
+                                      device)
     if kind == "mlstm":
         return ssm_lib.init_mlstm_state(batch, cfg, device)
     if kind == "slstm":
         return ssm_lib.init_slstm_state(batch, cfg, device)
-    raise NotImplementedError(
-        f"{cfg.name}: no decode state for {kind!r} blocks yet (the KV cache "
-        f"is ROADMAP.md queue 1, item 14)")
+    raise ValueError(kind)
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, mode: str,
-                layer_idx: int, positions, state=None):
+                layer_idx: int, positions, state=None, index=None,
+                cache_capacity=None):
     """Returns (x, new_state); the state is None in ``train`` and
-    ``encode`` modes.  Prefill starts every recurrent layer from zeros,
-    as the JAX package does; decode steps from ``state``."""
+    ``encode`` modes.  Prefill starts every recurrent layer from zeros
+    and builds every attention layer's cache (``cache_capacity`` slots
+    for full attention), as the JAX package does; decode steps from
+    ``state`` with the token at absolute position ``index``.
+
+    ``layer_idx`` is the layer's index in the model.  The JAX package
+    passes a scanned unit's blocks their index within the unit and the
+    remainder layers ``U * unit + j``; under every window pattern of
+    ``layer_window`` the two give the same windows whenever the unit's
+    length is a multiple of ``global_every`` (``tests/test_torch_zoo.py``
+    holds gemma3's 34 layers to it)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     h = apply_norm(p["norm1"], x, cfg.norm_eps, cfg.norm_kind)
     decode = mode == "decode"
     new_state = None
     if kind == "attn":
-        if mode in ("prefill", "decode"):
-            raise NotImplementedError(
-                "attention prefill/decode needs the KV cache (ROADMAP.md "
-                "queue 1, item 14)")
-        y = attn_lib.attend_full(p["mix"], h, cfg, positions,
-                                 attn_lib.layer_window(cfg, layer_idx))
+        window = attn_lib.layer_window(cfg, layer_idx)
+        if decode:
+            y, new_state = attn_lib.attend_decode(p["mix"], h, state, index,
+                                                  cfg, positions, window)
+        else:
+            y, (k, v) = attn_lib.attend_full(p["mix"], h, cfg, positions,
+                                             window)
+            if mode == "prefill":
+                new_state = attn_lib.prefill_cache_from_kv(
+                    k, v, window, cfg.torch_dtype, capacity=cache_capacity)
     elif kind == "mlstm":
         y, new_state = (ssm_lib.mlstm_step(p["mix"], h, state, cfg) if decode
                         else ssm_lib.mlstm_full(p["mix"], h, cfg))

@@ -1,13 +1,14 @@
-"""Model configuration: the dense encoder family and the xLSTM family.
+"""Model configuration: the dense encoders and decoders of the zoo and
+the xLSTM family.
 
-The fields these two families read are ported from
-``repro.models.common``: the dense bidirectional encoder's, and for the
-recurrent family ``family``, ``ssm`` and the repeating-unit patterns
-``layer_pattern`` / ``moe_pattern``.  MoE and mRoPE come with the rest
-of the model zoo; a ``moe_pattern`` that marks any layer raises.
-``family`` is read by no port code yet; it is carried so that a config
-copy can be held against the JAX one field by field.  ``torch_dtype``
-takes the place of ``jnp_dtype``.
+The fields are ported from ``repro.models.common``: attention with
+RoPE or Qwen2-VL's mRoPE, sliding windows and softcap; the recurrent
+family's ``ssm``; the repeating-unit patterns ``layer_pattern`` /
+``moe_pattern``; the modality stub ``embed_inputs``; and the
+metadata ``max_seq_len`` and ``source``.  MoE comes later; a
+``moe_pattern`` that marks any layer raises.  ``torch_dtype`` takes the
+place of ``jnp_dtype``.  ``InputShape`` and ``INPUT_SHAPES`` are the
+benchmark shapes ``launch.specs`` judges.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
     rope_theta: float = 10000.0
+    use_mrope: bool = False       # Qwen2-VL multimodal RoPE (3 sections)
+    mrope_sections: tuple = (16, 24, 24)
     sliding_window: int = 0       # 0 = full attention
     # pattern of window use per layer: "all_global", "all_local",
     # "gemma" (5 local : 1 global) or "starcoder_swa"
@@ -50,7 +53,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     attn: AttnConfig = AttnConfig()
-    family: str = "dense"         # dense | ssm (the families ported so far)
+    family: str = "dense"         # dense | ssm | vlm | audio (ported so far)
     ssm: Optional[SSMConfig] = None
     # per-layer block kinds within one repeating unit; layers follow it
     # unit by unit, then the first num_layers % len(pattern) kinds
@@ -63,6 +66,10 @@ class ModelConfig:
     embed_scale: bool = False     # multiply embeddings by sqrt(d_model)
     act: str = "silu"             # silu (swiglu) | gelu (plain mlp)
     dtype: str = "bfloat16"
+    # modality frontend stub: False -> the input is (B, S, d_model) floats
+    embed_inputs: bool = True
+    max_seq_len: int = 131072
+    source: str = ""              # citation of the published config
 
     def __post_init__(self):
         if len(self.moe_pattern) != len(self.layer_pattern):
@@ -90,7 +97,7 @@ class ModelConfig:
 
     def reduced(self, num_layers=2, d_model=256) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests (the JAX
-        package's ``reduced`` without its MoE and max_seq_len fields)."""
+        package's ``reduced`` without its MoE fields)."""
         unit = len(self.layer_pattern)
         layers = max(num_layers, unit)
         layers -= layers % unit
@@ -114,4 +121,23 @@ class ModelConfig:
             vocab_size=min(self.vocab_size, 512),
             ssm=ssm,
             dtype="float32",
+            max_seq_len=2048,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the benchmark input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -105,6 +105,27 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, sections, theta: float = 10000.0):
+    """Qwen2-VL's multimodal RoPE, split-half, in f32.  x: (..., S, H,
+    D); positions3: (3, ..., S) temporal / height / width ids.  The D/2
+    frequency slots fall into ``sections`` (t, h, w), the last section
+    taking any slots past their sum; each slot turns by its section's
+    position.  For text the three streams are equal and this is RoPE."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (d/2,)
+    bounds = torch.cumsum(torch.tensor((0,) + tuple(sections),
+                                       device=x.device), 0)
+    slot = torch.arange(d // 2, device=x.device)
+    which = (torch.searchsorted(bounds, slot, right=True) - 1).clamp(0, 2)
+    pos = positions3.float()[which]                           # (d/2, ..., S)
+    ang = pos.movedim(0, -1) * freqs                          # (..., S, d/2)
+    ang = ang[..., None, :]                                   # (..., S, 1, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ------------------------------------------------------------------ mlp
 
 def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.float32,

@@ -8,7 +8,10 @@ Layer ``i`` has kind ``layer_pattern[i % len(layer_pattern)]``: the
 units one after another, then the remainder layers.  The layer loop is
 a Python loop.  Modes: ``train`` returns logits, ``encode`` the
 final-norm hidden states; ``prefill`` and ``decode`` return logits and
-a list with one recurrent state per layer.
+a list with one state per layer (a recurrent state, or an attention
+layer's KV cache).  Inputs are token ids, or for the modality stubs
+(``embed_inputs=False``, the ``vlm`` and ``audio`` families) embeddings
+(B, S, d) that take the embedding table's place.
 """
 
 from __future__ import annotations
@@ -39,26 +42,30 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.head = init_dense(gen, cfg.d_model, cfg.vocab_size, dtype)
 
-    def forward(self, tokens, mode: str = "train", state=None, index=0):
+    def forward(self, tokens=None, mode: str = "train", state=None,
+                index=0, embeds=None, cache_capacity=None):
         """``train``: logits; ``encode``: hidden states; ``prefill``:
-        (logits, states) from zero states; ``decode``: (logits, states)
-        one step on from ``state``, the tokens at position ``index``."""
+        (logits, states), every attention cache of ``cache_capacity``
+        slots (default S; window layers their ring); ``decode``:
+        (logits, states) one step on from ``state``, the tokens at
+        position ``index``.  ``embeds`` (B, S, d) replaces ``tokens``."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         if mode == "decode" and state is None:
             raise ValueError("decode needs the state of a prefill")
         cfg = self.cfg
-        x = apply_embedding(self.embed, tokens)
-        if cfg.embed_scale:
-            x = x * math.sqrt(cfg.d_model)
-        B, S = tokens.shape
+        x = self._embed_in(tokens, embeds)
+        B, S = x.shape[0], x.shape[1]
         offset = index if mode == "decode" else 0
-        positions = (torch.arange(S, device=tokens.device)[None, :]
+        positions = (torch.arange(S, device=x.device)[None, :]
                      + offset).expand(B, S)
+        if cfg.attn.use_mrope:   # text: the three streams are equal
+            positions = positions[None].expand(3, B, S)
         states = []
         for i, block in enumerate(self.layers):
             x, st = block(x, mode=mode, positions=positions,
-                          state=state[i] if mode == "decode" else None)
+                          state=state[i] if mode == "decode" else None,
+                          index=index, cache_capacity=cache_capacity)
             states.append(st)
         x = apply_norm(self.final_norm, x, cfg.norm_eps, cfg.norm_kind)
         if mode == "encode":
@@ -71,6 +78,19 @@ class Model(nn.Module):
             return logits, states
         return logits
 
+    def _embed_in(self, tokens, embeds):
+        """The first block's input.  ``embed_scale`` multiplies by
+        sqrt(d_model) rounded to the activations' type first, as the
+        JAX package does (in bf16 at d 2560: 50.5, not 50.596)."""
+        cfg = self.cfg
+        if embeds is not None:
+            x = embeds.to(cfg.torch_dtype)
+        else:
+            x = apply_embedding(self.embed, tokens)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+        return x
+
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """A model with weights drawn on ``device`` (default: the card;
@@ -81,20 +101,24 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
         return Model(cfg, torch.Generator(dev).manual_seed(seed))
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, device=None) -> list:
-    """One zero recurrent state per layer (``repro.models.model.
-    init_decode_state`` with the stacked units laid out layer by
-    layer)."""
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int = 0,
+                      device=None) -> list:
+    """One zero state per layer (``repro.models.model.init_decode_state``
+    with the stacked units laid out layer by layer): recurrent states,
+    and KV caches of ``cache_len`` slots (``min(cache_len, window)`` for
+    a window layer)."""
     dev = resolve_device(device)
     pat = cfg.layer_pattern
-    return [init_block_state(cfg, pat[i % len(pat)], batch, dev)
+    return [init_block_state(cfg, pat[i % len(pat)], batch, cache_len, dev,
+                             layer_idx=i)
             for i in range(cfg.num_layers)]
 
 
 def forward(model: Model, batch, *, mode: str = "train"):
     """Logits (B, S, V) in ``train`` mode, hidden states (B, S, d) in
-    ``encode`` mode, for ``batch["tokens"]`` (B, S)."""
-    return model(batch["tokens"], mode=mode)
+    ``encode`` mode, for ``batch["tokens"]`` (B, S) or
+    ``batch["embeds"]`` (B, S, d)."""
+    return model(batch.get("tokens"), mode=mode, embeds=batch.get("embeds"))
 
 
 def encode(model: Model, batch):
@@ -133,16 +157,20 @@ def lm_loss(model: Model, batch):
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
-def prefill(model: Model, batch):
-    """(logits (B, S, V), per-layer states) over ``batch["tokens"]``."""
-    return model(batch["tokens"], mode="prefill")
+def prefill(model: Model, batch, cache_capacity=None):
+    """(logits (B, S, V), per-layer states) over ``batch["tokens"]`` or
+    ``batch["embeds"]``; full-attention caches hold ``cache_capacity``
+    slots (default S: pass S + the tokens still to decode)."""
+    return model(batch.get("tokens"), mode="prefill",
+                 embeds=batch.get("embeds"), cache_capacity=cache_capacity)
 
 
 def decode_step(model: Model, token_batch, state, index):
-    """token_batch: {"tokens": (B, 1)} at position ``index``.  Returns
-    (logits (B, V), per-layer states)."""
-    logits, state = model(token_batch["tokens"], mode="decode", state=state,
-                          index=index)
+    """token_batch: {"tokens": (B, 1)} (or {"embeds": (B, 1, d)}) at
+    position ``index``.  Returns (logits (B, V), per-layer states)."""
+    logits, state = model(token_batch.get("tokens"), mode="decode",
+                          state=state, index=index,
+                          embeds=token_batch.get("embeds"))
     return logits[:, -1], state
 
 

@@ -121,7 +121,8 @@ def test_attend_full_grad_matches_xla(case):
     jgp, jgx = jax.grad(jloss, argnums=(0, 1))(p, x)
     tp = {n: torch.tensor(a, requires_grad=True) for n, a in p.items()}
     tx = torch.tensor(x, requires_grad=True)
-    y = tattn.attend_full(tp, tx, tcfg, torch.from_numpy(pos.copy()), window)
+    y, _ = tattn.attend_full(tp, tx, tcfg, torch.from_numpy(pos.copy()),
+                             window)
     (y * torch.from_numpy(dy)).sum().backward()
     _close(tx.grad.numpy(), jgx, "x")
     for n in p:

@@ -27,7 +27,11 @@ grad under grad mode.  The cache tiers on the card: ``_score_from_emb``
 (one ``router_score`` launch) within 1e-6 of the plain head on the same
 tensors, ``_embed_batch`` within 1e-5 of the CPU's largest magnitude,
 and a ``DiskKVStore``-backed engine answers everything from T2 after a
-restart.
+restart.  Attention in bf16 and at head_dim up to 256: bf16 outputs
+within one bf16 ulp of each element plus 2e-5 (the f32 tolerance before
+both round), f32 at the f32 tolerances.  The zoo's reduced decoders on
+the card against the CPU in f32: logits and caches rtol=atol=1e-4, the
+same greedy tokens.
 """
 
 import copy
@@ -120,6 +124,78 @@ def test_flash_attention_kernel_edges(B, S, T, H, KV, hd, causal, window,
     ref = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+
+
+BF16_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
+    (2, 128, 128, 32, 4, 64, True, 0, 0.0),     # tinyllama's heads
+    (2, 96, 96, 16, 16, 64, True, 0, 0.0),      # qwen1.5-0.5b's
+    (1, 200, 200, 8, 4, 256, True, 64, 0.0),    # gemma3 local, rolls
+    (1, 200, 200, 8, 4, 256, True, 0, 0.0),     # gemma3 global
+    (1, 300, 300, 48, 4, 128, True, 256, 0.0),  # starcoder2, past window
+    (2, 64, 64, 16, 16, 80, False, 0, 0.0),     # hubert's
+    (1, 130, 130, 8, 8, 128, False, 0, 0.0),
+    (2, 77, 90, 4, 2, 136, False, 0, 30.0),     # odd hd / 8 above 128
+    (1, 50, 50, 2, 1, 200, True, 0, 5.0),
+    (1, 20, 8, 2, 2, 256, False, 3, 0.0),       # rows that see no key
+]
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place of each element of ``x``."""
+    x = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window,softcap", BF16_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernel_bf16_and_wide_heads(B, S, T, H, KV, hd,
+                                                    causal, window, softcap,
+                                                    dtype):
+    """bf16 inputs and head_dim up to 256 (two column halves above 128):
+    bf16 within one bf16 ulp of each element plus the f32 tolerance (the
+    kernel's f32 result is within 2e-5 of the plain version's before
+    each rounds to bf16); f32 at the f32 tolerances."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(B * S + T * hd)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g).to(dt)
+    k, v = (torch.randn(B, T, KV, hd, device="cuda", generator=g).to(dt)
+            for _ in range(2))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    ref = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    if dt == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+    else:
+        err = (out.float() - ref.float()).abs()
+        bound = bf16_ulp(torch.maximum(out.float().abs(), ref.float().abs()))
+        assert bool((err <= bound + 2e-5).all()), float((err - bound).max())
+
+
+def test_flash_attention_refuses_what_it_does_not_take_on_the_card():
+    _card()
+    x = torch.zeros(1, 4, 2, 264, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(x, x, x)
+    h = torch.zeros(1, 4, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa_ops.flash_attention(h, h, h)
+    # the backward kernel is f32 up to hd 128: a graph that would need it
+    # is refused before the forward runs
+    for dt, hd in ((torch.bfloat16, 64), (torch.float32, 256)):
+        q = torch.zeros(1, 4, 2, hd, device="cuda", dtype=dt,
+                        requires_grad=True)
+        before = fa_ops.flash_attention.launches
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fa_ops.flash_attention(q, q, q)
+        assert fa_ops.flash_attention.launches == before
+        with torch.no_grad():
+            assert fa_ops.flash_attention(q, q, q).shape == q.shape
 
 
 def _head_case(B, M, tied, seed, d=128, hh=128, n_c=2):
@@ -327,6 +403,79 @@ def test_xlstm_on_card_matches_cpu():
     assert (pg, dg) == (cfg.layer_pattern.count("mlstm"), 0)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(tg, tc)
+
+
+ZOO_CARD = [("tinyllama-1.1b", None, False), ("gemma3-4b", 8, False),
+            ("qwen2-vl-72b", None, True), ("starcoder2-15b", 8, False)]
+
+
+@pytest.mark.parametrize("arch,window,embeds", ZOO_CARD)
+def test_zoo_decoder_on_card_matches_cpu(arch, window, embeds):
+    """A reduced decoder (f32, d 128): prefill into the KV cache through
+    the attention kernel and 6 greedy decode steps on the card against
+    the plain versions on the CPU, with the window configs' rings rolled
+    (window 8, prompt 40).  One attention launch per layer in the
+    prefill, none in decode (XLA-style plain decode, as in the JAX
+    package)."""
+    import dataclasses
+    _card()
+    cfg = get_config(arch).reduced(d_model=128)
+    if window:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, sliding_window=window))
+    cpu = init_model(cfg, seed=3, device="cpu")
+    gpu = copy.deepcopy(cpu).cuda()
+    S, steps = 40, 6
+    rng = np.random.default_rng(0)
+    batch = ({"embeds": rng.normal(size=(2, S, cfg.d_model)).astype(
+        np.float32)} if embeds else {"tokens": rng.integers(
+            0, cfg.vocab_size, (2, S)).astype(np.int32)})
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        launches.reset_launch_counts()
+        last, st = prefill_step(model, batch, cache_capacity=S + steps,
+                                device=dev)
+        n_prefill = launches.launch_counts()["flash_attention"]
+        tok = last.argmax(-1).to(torch.int32)[:, None]
+        got = [tok]
+        for t in range(steps):
+            tok, st = serve_step(model, st, tok, S + t, device=dev)
+            got.append(tok)
+        out.append((last.cpu(), torch.cat(got, 1).cpu(), n_prefill,
+                    launches.launch_counts()["flash_attention"] - n_prefill,
+                    [{n: a.cpu() for n, a in x.items()} for x in st]))
+    (lc, tc, pc, dc, sc), (lg, tg, pg, dg, sg) = out
+    assert (pc, dc) == (0, 0)
+    assert (pg, dg) == (cfg.num_layers, 0)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tg, tc)
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_zoo_decoder_bf16_on_card():
+    """tinyllama reduced in its own type (bf16): the prefill goes through
+    the bf16 kernel (one launch a layer) into bf16 caches, and greedy
+    decode runs from them without a launch.  (Against the CPU it is
+    held in f32 above: in bf16 the two sides round at other places.)"""
+    import dataclasses
+    _card()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(
+        d_model=256), dtype="bfloat16")
+    model = init_model(cfg, seed=5, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).cuda()
+    launches.reset_launch_counts()
+    last, st = prefill_step(model, {"tokens": toks}, cache_capacity=68)
+    assert launches.launch_counts()["flash_attention"] == cfg.num_layers
+    assert all(x["k"].dtype == torch.bfloat16 and x["k"].shape[1] == 68
+               for x in st)
+    assert bool(torch.isfinite(last).all())
+    tok = last.argmax(-1).to(torch.int32)[:, None]
+    for t in range(4):
+        tok, st = serve_step(model, st, tok, 64 + t)
+        assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    assert launches.launch_counts()["flash_attention"] == cfg.num_layers
 
 
 def _grad_cases():

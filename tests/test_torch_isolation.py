@@ -56,7 +56,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "optim.adamw", "core.training", "core.qtable",
                 "core.baselines", "core.pareto", "core.experiment",
                 "core.e2e", "serving.kvstore", "serving.semcache",
-                "launch.serve"):
+                "launch.serve", "launch.specs", "configs.tinyllama_11b",
+                "configs.qwen15_05b", "configs.starcoder2_15b",
+                "configs.gemma3_4b", "configs.hubert_xlarge",
+                "configs.qwen2_vl_72b"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -101,6 +104,29 @@ def test_xlstm_entry_points_raise_without_a_card(monkeypatch):
         serve_step(model, state, tokens[:, :1], 4)
     # asked for the CPU, they run there
     last, state = prefill_step(model, {"tokens": tokens}, device="cpu")
+    tok, _ = serve_step(model, state, last.argmax(-1)[:, None], 4,
+                        device="cpu")
+    assert tok.shape == (1, 1)
+
+
+def test_zoo_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models.model import init_decode_state, init_model
+    cfg = get_config("qwen2-vl-72b").reduced(d_model=32)
+    model = init_model(cfg, device="cpu")
+    embeds = torch.zeros(1, 4, cfg.d_model)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_decode_state(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prefill_step(model, {"embeds": embeds}, cache_capacity=8)
+    # asked for the CPU, they run there: a KV cache per layer
+    last, state = prefill_step(model, {"embeds": embeds}, cache_capacity=8,
+                               device="cpu")
+    assert [s["k"].shape[1] for s in state] == [8] * cfg.num_layers
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_step(model, state, last.argmax(-1)[:, None], 4)
     tok, _ = serve_step(model, state, last.argmax(-1)[:, None], 4,
                         device="cpu")
     assert tok.shape == (1, 1)

@@ -209,10 +209,17 @@ def test_unported_configs_raise():
     with pytest.raises(ValueError, match="ported"):
         bridge.model_config_from(jget_config("jamba-v0.1-52b"))
     cfg = get_config(ARCH).reduced(d_model=32)
+    mamba = dataclasses.replace(cfg, layer_pattern=("mamba",),
+                                moe_pattern=(False,), num_layers=1)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tm.init_model(mamba, device="cpu")
+    # attention prefill is ported since the KV cache: it returns one
     attn = dataclasses.replace(cfg, layer_pattern=("attn",),
                                moe_pattern=(False,), num_layers=1)
     model = tm.init_model(attn, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tm.prefill(model, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    _, state = tm.prefill(model, {"tokens": torch.zeros(1, 4,
+                                                        dtype=torch.long)})
+    assert state[0]["k"].shape == (1, 4, attn.num_kv_heads,
+                                   attn.resolved_head_dim)
     with pytest.raises(NotImplementedError, match="MoE"):
         dataclasses.replace(cfg, moe_pattern=(True,) + (False,) * 7)
