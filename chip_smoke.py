@@ -27,19 +27,32 @@ just before it and read just after:
   ``serve_step``; ``xlstm_crosscheck`` runs a one-unit f32 copy of it at
   full width on the card and on the CPU and compares them, and holds
   decode against a longer prefill for the whole config in f32;
-* ``zoo_serve``: the zoo's dense configs at full width in bf16 with
-  seeded weights drawn on the card, one at a time: ``prefill_step``
-  into the KV caches (capacity prompt + steps), then greedy
-  ``serve_step`` decode: tinyllama-1.1b and qwen1.5-0.5b (4 x 512, 32
-  steps), gemma3-4b (2 x 2048, its 1024-slot rings roll; 32 steps),
-  starcoder2-15b (1 x 4608, past its 4096 window; 16 steps),
-  qwen2-vl-72b with 8 of its 80 layers (embeddings 2 x 1024, 16 token
-  steps) and hubert-xlarge (embeddings 4 x 512, an encoder: prefill
-  only); one attention launch per layer a prefill, none in decode;
+* ``zoo_serve``: the zoo's other nine configs at full width in bf16
+  with seeded weights drawn on the card, one at a time:
+  ``prefill_step`` into the KV caches (capacity prompt + steps) and
+  Mamba states, then greedy ``serve_step`` decode: tinyllama-1.1b and
+  qwen1.5-0.5b (4 x 512, 32 steps), gemma3-4b (2 x 2048, its 1024-slot
+  rings roll; 32 steps), starcoder2-15b (1 x 4608, past its 4096
+  window; 16 steps), qwen2-vl-72b with 8 of its 80 layers (embeddings 2
+  x 1024, 16 token steps), hubert-xlarge (embeddings 4 x 512, an
+  encoder: prefill only), qwen2-moe-a2.7b (all 24 layers, 4 x 512, 32
+  steps), grok-1-314b with 4 of its 64 layers and jamba-v0.1-52b with
+  one 8-layer unit (1 x 2048, 16 steps); one attention launch per
+  attention layer a prefill, none in decode; each MoE record gives the
+  share of (token, choice) pairs dropped at capacity in the timed
+  prefill and decode, the largest expert load over the mean, and one
+  MoE layer's time split (routing, experts, the rest: buffer write,
+  gather and combine);
 * ``zoo_crosscheck``: f32 at full width, reduced depth: tinyllama (4
-  layers) and gemma3 (one 6-layer unit, a 1100-token prompt) card vs
-  CPU (logits, greedy tokens), and for every decoder decode against a
-  prefill one token longer on the card;
+  layers), gemma3 (one 6-layer unit, a 1100-token prompt), qwen2-moe
+  (2 layers) and jamba (2 layers: Mamba with a dense MLP, Mamba with
+  MoE) card vs CPU (logits, greedy tokens, each MoE layer's expert sets
+  token by token, excused only at a near tie of the router's
+  probabilities), and for every decoder (jamba's whole unit too:
+  ``mamba_step`` against ``mamba_full``) decode against a prefill one
+  token longer on the card, held up to the first MoE layer that drops a
+  pair and reported past it, and for jamba again with a capacity factor
+  of E / K, where nothing drops, held in full;
 * ``attention_grad``: the attention backward kernel against torch
   autograd of the plain version at the training shapes, small causal,
   window, softcap and GQA cases, both sides of the switch between its
@@ -169,6 +182,9 @@ ZOO_ATTN_CASES = [
     (2, 1024, 64, 8, 128, True, 0, 0.0, "bfloat16"),      # qwen2-vl
     (4, 512, 16, 16, 80, False, 0, 0.0, "bfloat16"),      # hubert
     (2, 256, 8, 4, 128, False, 0, 30.0, "bfloat16"),      # softcap
+    (4, 512, 16, 16, 128, True, 0, 0.0, "bfloat16"),      # qwen2-moe
+    (1, 2048, 48, 8, 128, True, 0, 30.0, "bfloat16"),     # grok-1
+    (1, 2048, 32, 8, 128, True, 0, 0.0, "bfloat16"),      # jamba
     (1, 1100, 8, 4, 256, True, 1024, 0.0, "float32"),     # gemma3 in f32
     (1, 1100, 8, 4, 256, True, 0, 0.0, "float32"),
 ]
@@ -184,27 +200,48 @@ ADAPT_HEAD_TOL, ADAPT_ALL_TOL = 1e-5, 1e-4
 DRIFT_TOL = 0.5    # bench_drift: "routed well" = within 0.5 nats of best
 XLSTM_ARCH, XLSTM_B, XLSTM_S, XLSTM_DECODE = "xlstm-1.3b", 4, 512, 32
 # zoo_serve: (arch, fields cut, batch, prompt, decode steps), full width
-# in bf16; only qwen2-vl's depth is cut (145 GB of bf16 weights at 80
-# layers do not fit in 80 GB); hubert is an encoder (prefill only)
+# in bf16; depth is cut where the bf16 weights do not fit in 80 GB:
+# qwen2-vl (145 GB at 80 layers), grok-1 (9.8 GB a layer) and jamba (104
+# GB; one 8-layer unit: 7 Mamba, 1 attention, 4 MoE layers); hubert is
+# an encoder (prefill only)
 ZOO_SERVE = [("tinyllama-1.1b", None, 4, 512, 32),
              ("qwen1.5-0.5b", None, 4, 512, 32),
              ("gemma3-4b", None, 2, 2048, 32),
              ("starcoder2-15b", None, 1, 4608, 16),
              ("qwen2-vl-72b", {"num_layers": 8}, 2, 1024, 16),
-             ("hubert-xlarge", None, 4, 512, 0)]
+             ("hubert-xlarge", None, 4, 512, 0),
+             ("qwen2-moe-a2.7b", None, 4, 512, 32),
+             ("grok-1-314b", {"num_layers": 4}, 1, 2048, 16),
+             ("jamba-v0.1-52b", {"num_layers": 8}, 1, 2048, 16)]
 # zoo_crosscheck, f32 at full width: card vs CPU (arch, layers, prompt,
-# greedy tokens), and decode vs a prefill one longer on the card (arch,
-# layers, batch, prompt; gemma3 and starcoder2 past their windows)
-ZOO_CROSS = [("tinyllama-1.1b", 4, 128, 8), ("gemma3-4b", 6, 1100, 8)]
+# greedy tokens; jamba's 2 layers are a Mamba layer with a dense MLP and
+# one with MoE), and decode vs a prefill one longer on the card (arch,
+# layers, batch, prompt; gemma3 and starcoder2 past their windows,
+# jamba's whole unit)
+ZOO_CROSS = [("tinyllama-1.1b", 4, 128, 8), ("gemma3-4b", 6, 1100, 8),
+             ("qwen2-moe-a2.7b", 2, 128, 8), ("jamba-v0.1-52b", 2, 128, 8)]
+# an MoE layer's expert set may differ card vs CPU only where the CPU's
+# router probabilities at the K-th and (K+1)-th choice are this close
+ROUTE_GAP = 1e-5
 # times: the decoders' attention at their bf16 prefill shapes (B, S, H,
-# KV, hd, causal, window, config)
-ZOO_TIMES = [(4, 512, 32, 4, 64, True, 0, "tinyllama-1.1b"),
-             (2, 2048, 8, 4, 256, True, 1024, "gemma3-4b local"),
-             (2, 2048, 8, 4, 256, True, 0, "gemma3-4b global"),
-             (1, 4608, 48, 4, 128, True, 4096, "starcoder2-15b")]
-ZOO_DVP = [("tinyllama-1.1b", 4, 2, 128), ("qwen1.5-0.5b", 4, 2, 128),
-           ("gemma3-4b", 6, 1, 1100), ("starcoder2-15b", 2, 1, 4200),
-           ("qwen2-vl-72b", 2, 1, 128)]
+# KV, hd, causal, window, softcap, config)
+ZOO_TIMES = [(4, 512, 32, 4, 64, True, 0, 0.0, "tinyllama-1.1b"),
+             (2, 2048, 8, 4, 256, True, 1024, 0.0, "gemma3-4b local"),
+             (2, 2048, 8, 4, 256, True, 0, 0.0, "gemma3-4b global"),
+             (1, 4608, 48, 4, 128, True, 4096, 0.0, "starcoder2-15b"),
+             (4, 512, 16, 16, 128, True, 0, 0.0, "qwen2-moe-a2.7b"),
+             (1, 2048, 48, 8, 128, True, 0, 30.0, "grok-1-314b"),
+             (1, 2048, 32, 8, 128, True, 0, 0.0, "jamba-v0.1-52b")]
+# (arch, layers, batch, prompt, MoE capacity factor: None for the
+# config's; jamba also at E / K, where C = T and nothing drops, so its
+# whole unit is held)
+ZOO_DVP = [("tinyllama-1.1b", 4, 2, 128, None),
+           ("qwen1.5-0.5b", 4, 2, 128, None),
+           ("gemma3-4b", 6, 1, 1100, None),
+           ("starcoder2-15b", 2, 1, 4200, None),
+           ("qwen2-vl-72b", 2, 1, 128, None),
+           ("jamba-v0.1-52b", 8, 2, 128, None),
+           ("jamba-v0.1-52b", 8, 2, 128, 8.0)]
 CROSS_S, CROSS_DECODE = 128, 8
 
 # the README's flag phrases; 192 unique prompts repeat with the same flags
@@ -1246,10 +1283,126 @@ def zoo_inputs(torch, cfg, B, S, seed):
             .to(cfg.torch_dtype)}
 
 
+def attn_layers(cfg) -> list:
+    """The indices of a config's attention layers."""
+    pat = cfg.layer_pattern
+    return [i for i in range(cfg.num_layers) if pat[i % len(pat)] == "attn"]
+
+
+@contextlib.contextmanager
+def moe_inputs(model):
+    """Record every MoE layer's input while active: a list of (layer
+    index, (B, S, d) tensor) in call order."""
+    seen = []
+    hooks = [b["mlp"].register_forward_hook(
+        lambda mod, args, out, i=i: seen.append((i, args[0])))
+        for i, b in enumerate(model.layers) if b.use_moe]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def moe_routes(torch, model, seen) -> list:
+    """``moe.route`` of each recorded input: (layer index, Routing)."""
+    from repro_torch.models import moe
+    cfg = model.cfg
+    with torch.inference_mode():
+        return [(i, moe.route(model.layers[i]["mlp"],
+                              x.reshape(-1, cfg.d_model), cfg))
+                for i, x in seen]
+
+
+def moe_stats(torch, model, seen) -> dict:
+    """Over the recorded MoE calls: the share of (token, choice) pairs
+    dropped at capacity, and each call's largest expert load over the
+    mean load (max and mean over the calls); with at most 32 calls (a
+    prefill) also each call's dropped pairs and load."""
+    E = model.cfg.moe.num_experts
+    drops, loads, pairs = [], [], 0
+    for _, r in moe_routes(torch, model, seen):
+        drops.append(int((~r.keep).sum()))
+        pairs += r.keep.numel()
+        counts = torch.bincount(r.gate_idx.flatten(), minlength=E).float()
+        loads.append(float(counts.max() / counts.mean()))
+    dropped = sum(drops)
+    by_call = ({"dropped_by_call": drops, "load_by_call": loads}
+               if len(loads) <= 32 else {})
+    return {"calls": len(loads), "pairs": pairs, "dropped": dropped,
+            **by_call, "dropped_share": dropped / pairs if pairs else None,
+            "max_load_over_mean": max(loads) if loads else None,
+            "mean_max_load_over_mean": (sum(loads) / len(loads)
+                                        if loads else None)}
+
+
+def mean_cosine(torch, x) -> float:
+    """The mean cosine between the rows of each batch element of x (B,
+    S, d), over the pairs of distinct rows: how far a layer's inputs
+    point one way, which concentrates a router's choices."""
+    u = x.float() / x.float().norm(dim=-1, keepdim=True)
+    S = u.shape[1]
+    total = (u @ u.transpose(1, 2)).sum() - u.shape[0] * S
+    return float(total / (u.shape[0] * S * (S - 1)))
+
+
+def moe_breakdown(torch, model, layer, x) -> dict:
+    """One MoE layer at a recorded prefill input: device time per call
+    (the profiler's, over 10 calls) of the whole layer; of the routing
+    alone (softmax, the top-k sort, the argsort by expert, positions,
+    aux); of the experts' batched products on a buffer of the call's
+    (E, C, d); and of the shared experts.  The rest of the layer is the
+    dispatch's buffer write (index_put) and the gather and combine of
+    the outputs.  Device times, not events: the routing's small kernels
+    are host-bound alone but queue behind the products in the layer.
+    None where the profiler traces no device time."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_mlp
+    cfg = model.cfg
+    p = model.layers[layer]["mlp"]
+    xt = x.reshape(-1, cfg.d_model)
+    C = moe.capacity(xt.shape[0], cfg)
+    buf = torch.randn(cfg.moe.num_experts, C, cfg.d_model, device="cuda",
+                      dtype=x.dtype)
+    parts = {
+        "layer": lambda: p(x),
+        "route": lambda: moe.route(p, xt, cfg),
+        "experts": lambda: torch.bmm(F.silu(torch.bmm(buf, p["wi"]))
+                                     * torch.bmm(buf, p["wg"]), p["wo"])}
+    if "shared" in p:
+        parts["shared"] = lambda: apply_mlp(p["shared"], xt, cfg.act)
+    t = {"tokens": xt.shape[0], "capacity": C}
+    with torch.inference_mode():
+        t["layer_events_ms"] = events_ms(torch, parts["layer"], iters=10,
+                                         warmup=2)
+        for name, fn in parts.items():
+            t[name + "_device_ms"] = sum(
+                profiled_kernels(torch, fn, iters=10).values()) or None
+    dev = [t[n + "_device_ms"] for n in parts]
+    if all(dev):
+        rest = t["layer_device_ms"] - sum(dev[2:])
+        t["write_gather_combine_device_ms"] = rest - t["route_device_ms"]
+        t["dispatch_share"] = rest / t["layer_device_ms"]
+    return t
+
+
+# profiler kernel-name substrings of the MoE dispatch: the top-k sort, the
+# argsort by expert and index_put's own sort; the accumulating buffer
+# write; the gathers (x[flat_t], out_buf[e, slot]; also the embedding
+# lookup)
+MOE_MATCH = {"moe_sort": ("Sort", "sort"),
+             "moe_index_put": ("indexing_backward", "index_put"),
+             "moe_gather": ("index_elementwise", "gather")}
+
+
 def zoo_one(torch, arch, cut, B, S, steps, seed):
     """Serve one config at full width in bf16 (weights drawn on the card):
     a warm-up, then a timed prefill_step with cache_capacity = S + steps
-    and ``steps`` timed serve_step calls.  Returns the config's record."""
+    and ``steps`` timed serve_step calls.  Returns the config's record;
+    an MoE config's adds the share of (token, choice) pairs dropped in
+    the timed prefill and decode, the expert loads, and one MoE layer's
+    time split (``moe_breakdown``)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import launches
@@ -1265,6 +1418,7 @@ def zoo_one(torch, arch, cut, B, S, steps, seed):
         cfg = dataclasses.replace(cfg, **cut)
     decodes = specs.applicable(cfg, INPUT_SHAPES["decode_32k"])[0]
     steps = steps if decodes else 0
+    attn = attn_layers(cfg)
     t0 = time.perf_counter()
     model = model_lib.init_model(cfg, seed=seed, device="cuda")
     batch = zoo_inputs(torch, cfg, B, S, seed)
@@ -1278,42 +1432,52 @@ def zoo_one(torch, arch, cut, B, S, steps, seed):
     del last, st
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches.reset_launch_counts()
-    t0 = time.perf_counter()
-    last, state = prefill_step(model, batch, cache_capacity=cap)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    with moe_inputs(model) as seen_prefill:
+        launches.reset_launch_counts()
+        t0 = time.perf_counter()
+        last, state = prefill_step(model, batch, cache_capacity=cap)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
     n_prefill = launches.launch_counts()["flash_attention"]
     tok = last.argmax(-1).to(torch.int32)[:, None]
     generated = [tok]
-    t0 = time.perf_counter()
-    for t in range(steps):
-        tok, state = serve_step(model, state, tok, S + t)
-        generated.append(tok)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+    with moe_inputs(model) as seen_decode:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            tok, state = serve_step(model, state, tok, S + t)
+            generated.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
     n_decode = launches.launch_counts()["flash_attention"] - n_prefill
     peak = torch.cuda.max_memory_allocated()
     generated = torch.cat(generated, 1)
 
     check(bool(torch.isfinite(last).all()), f"{arch}: non-finite logits")
-    check(n_prefill == cfg.num_layers and n_decode == 0,
+    check(n_prefill == len(attn) and n_decode == 0,
           f"{arch}: flash_attention launched {n_prefill} times in the "
-          f"prefill (want {cfg.num_layers}) and {n_decode} in decode")
-    windows = [attn_lib.layer_window(cfg, i) for i in range(cfg.num_layers)]
-    slots = [x["k"].shape[1] for x in state]
+          f"prefill (want one per attention layer, {len(attn)}) and "
+          f"{n_decode} in decode")
+    windows = [attn_lib.layer_window(cfg, i) for i in attn]
+    slots = [state[i]["k"].shape[1] for i in attn]
     check(slots == [min(w, cap) if w else cap for w in windows],
           f"{arch}: cache slots {sorted(set(slots))}")
-    check(all(x["k"].dtype == cfg.torch_dtype for x in state),
+    check(all(state[i]["k"].dtype == cfg.torch_dtype for i in attn),
           f"{arch}: cache not in {cfg.dtype}")
+    mamba = [x for x in state if "h" in x and "conv" in x]
+    check(all(x["h"].dtype == torch.float32
+              and x["conv"].dtype == cfg.torch_dtype
+              and bool(torch.isfinite(x["h"]).all()) for x in mamba),
+          f"{arch}: Mamba states not finite f32 h and {cfg.dtype} conv")
     check(generated.shape == (B, steps + 1) and bool(
         ((generated >= 0) & (generated < cfg.vocab_size)).all()),
         f"{arch}: bad generated tokens")
     name = "embeds" if "embeds" in batch else "tokens"
+    match = {"flash_attention": SOURCES["flash_attention"][2]}
+    if cfg.moe is not None:
+        match.update(MOE_MATCH)
     prof_prefill = device_profile(
         torch, lambda: prefill_step(model, batch, cache_capacity=cap),
-        prefill_s * 1e3,
-        match={"flash_attention": SOURCES["flash_attention"][2]})
+        prefill_s * 1e3, match=match)
     prof_decode = (device_profile(
         torch, lambda: serve_step(model, state, tok, S + steps),
         decode_s * 1e3 / steps) if steps else None)
@@ -1328,12 +1492,23 @@ def zoo_one(torch, arch, cut, B, S, steps, seed):
            "decode_ms_per_step": decode_s * 1e3 / steps if steps else None,
            "decode_tokens_per_s": B * steps / decode_s if steps else None,
            "peak_memory_bytes": peak,
+           "attention_layers": len(attn), "mamba_layers": len(mamba),
            "flash_attention_launches_per_prefill": n_prefill,
            "flash_attention_launches_decode": n_decode,
            "profiled_prefill": prof_prefill,
            "profiled_decode_step": prof_decode,
            "first_tokens": generated[:, :8].cpu().tolist()}
-    del model, state, batch, last
+    if cfg.moe is not None:
+        out["moe"] = {
+            "layers": sum(b.use_moe for b in model.layers),
+            "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+            "capacity_factor": cfg.moe.capacity_factor,
+            "prefill": moe_stats(torch, model, seen_prefill),
+            "first_moe_input_mean_cosine": mean_cosine(
+                torch, seen_prefill[0][1]),
+            "decode": moe_stats(torch, model, seen_decode),
+            "breakdown": moe_breakdown(torch, model, *seen_prefill[0])}
+    del model, state, batch, last, seen_prefill, seen_decode
     torch.cuda.empty_cache()
     return out
 
@@ -1350,13 +1525,39 @@ def zoo_serve_phase(torch) -> dict:
     return {"launches": sum(launches.values()), "by_arch": launches}
 
 
+def expert_set_diffs(torch, cfg, routes_g, routes_c) -> list:
+    """For each MoE call of a prefill, card vs CPU: the tokens whose
+    expert sets differ, and how many of them sit at a near tie (the CPU's
+    router probabilities at the K-th and (K+1)-th choice within
+    ROUTE_GAP)."""
+    K = cfg.moe.top_k
+    out = []
+    for (i, rg), (_, rc) in zip(routes_g, routes_c):
+        sg = rg.gate_idx.cpu().sort(-1).values
+        sc = rc.gate_idx.sort(-1).values
+        rows = (sg != sc).any(-1).nonzero().flatten()
+        near = 0
+        if rows.numel():      # K < E: with K = E every set is all experts
+            top = rc.probs[rows].sort(-1, descending=True).values
+            near = int((top[:, K - 1] - top[:, K] < ROUTE_GAP).sum())
+        out.append({"layer": i, "tokens": int(sg.shape[0]),
+                    "differ": int(rows.numel()), "near_tie": near})
+    return out
+
+
 def zoo_crosscheck_phase(torch) -> dict:
     """f32 at full width, reduced depth.  Card (kernel) vs CPU (plain
     versions) on the same weights (drawn on the card, deep-copied to the
-    CPU) for tinyllama (4 layers) and gemma3 (one 6-layer unit, a prompt
-    past its 1024 window); then on the card, for every decoder, decode
-    one token from a prefill's cache against a prefill one token longer
-    (the reference's tolerance)."""
+    CPU) for tinyllama (4 layers), gemma3 (one 6-layer unit, a prompt
+    past its 1024 window), qwen2-moe (2 layers) and jamba (2 layers);
+    an MoE config's expert sets in the prefill are compared token by
+    token.  Then on the card, for every decoder, decode one token from
+    a prefill's cache against a prefill one token longer (the
+    reference's tolerance); an MoE layer's capacity depends on the
+    call's token count, so with MoE the comparison is held only up to
+    the first MoE layer where any of the three calls dropped a pair, and
+    reported past it (jamba also runs with a capacity factor of E / K,
+    C = T, where no call drops)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
@@ -1365,6 +1566,7 @@ def zoo_crosscheck_phase(torch) -> dict:
     for arch, layers, S, steps in ZOO_CROSS:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   dtype="float32")
+        n_attn = len(attn_layers(cfg))
         t0 = time.perf_counter()
         gpu = model_lib.init_model(cfg, seed=11, device="cuda")
         cpu = copy.deepcopy(gpu).cpu()
@@ -1372,12 +1574,15 @@ def zoo_crosscheck_phase(torch) -> dict:
         res = {"setup_s": time.perf_counter() - t0}
         for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, None)):
             t1 = time.perf_counter()
-            res[name] = greedy(torch, model, prompt.to(dev or "cuda"),
-                               steps - 1, dev, kernel="flash_attention")
+            with moe_inputs(model) as seen:
+                res[name] = greedy(torch, model, prompt.to(dev or "cuda"),
+                                   steps - 1, dev, kernel="flash_attention")
+            n_moe = sum(b.use_moe for b in model.layers)
+            res[name + "_routes"] = moe_routes(torch, model, seen[:n_moe])
             res[name + "_s"] = time.perf_counter() - t1
         last_c, toks_c, dec_c, _, pre_c, _ = res["cpu"]
         last_g, toks_g, _, _, pre_g, dcd_g = res["cuda"]
-        check(pre_c == 0 and (pre_g, dcd_g) == (layers, 0),
+        check(pre_c == 0 and (pre_g, dcd_g) == (n_attn, 0),
               f"{arch}: flash_attention launches cpu {pre_c}, card {pre_g} "
               f"+ {dcd_g}")
         e = float((last_g.cpu() - last_c).abs().max()) / float(
@@ -1387,35 +1592,62 @@ def zoo_crosscheck_phase(torch) -> dict:
                                                [last_c] + dec_c)
         check(first_diff is None or excused,
               f"{arch}: card and CPU tokens differ at step {first_diff}")
-        card_cpu.append({"arch": arch, "layers": layers, "prompt_len": S,
-                         "tokens": steps, "launches_prefill": pre_g,
-                         "logits_rel_err": e,
-                         "tokens_identical": first_diff is None,
-                         "first_token_diff": first_diff,
-                         "near_tie_excused": excused,
-                         "setup_s": res["setup_s"], "cpu_s": res["cpu_s"],
-                         "card_s": res["cuda_s"]})
-        del gpu, cpu
+        row = {"arch": arch, "layers": layers, "prompt_len": S,
+               "tokens": steps, "launches_prefill": pre_g,
+               "logits_rel_err": e, "tokens_identical": first_diff is None,
+               "first_token_diff": first_diff, "near_tie_excused": excused,
+               "setup_s": res["setup_s"], "cpu_s": res["cpu_s"],
+               "card_s": res["cuda_s"]}
+        if cfg.moe is not None:
+            diffs = expert_set_diffs(torch, cfg, res["cuda_routes"],
+                                     res["cpu_routes"])
+            # past the first call with a difference the inputs differ
+            for d in diffs:
+                check(d["differ"] == d["near_tie"],
+                      f"{arch}: layer {d['layer']}: {d['differ']} tokens "
+                      f"chose other experts on the card, {d['near_tie']} "
+                      f"at a near tie")
+                if d["differ"]:
+                    break
+            row["expert_set_diffs"] = diffs
+            row["dropped_prefill"] = [int((~r.keep).sum())
+                                      for _, r in res["cpu_routes"]]
+        card_cpu.append(row)
+        del gpu, cpu, res
         torch.cuda.empty_cache()
     dvp = []
-    for arch, layers, B, S in ZOO_DVP:
+    for arch, layers, B, S, cf in ZOO_DVP:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   dtype="float32")
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
         model = model_lib.init_model(cfg, seed=13, device="cuda")
         prompt = zoo_tokens(torch, cfg, B, S, seed=14)
-        r = decode_vs_prefill(torch, model, prompt)
-        check(r["close"], f"{arch}: decode vs prefill max abs err "
-                          f"{r['max_abs_err']}")
+        with moe_inputs(model) as seen:
+            r = decode_vs_prefill(torch, model, prompt)
+        # the first layer at or past which a call dropped a pair
+        drop_layers = sorted({i for i, rt in moe_routes(torch, model, seen)
+                              if not bool(rt.keep.all())})
+        held = drop_layers[0] if drop_layers else layers
+        check(all(r["layers_close"][:held]) and (held < layers
+                                                 or r["close"]),
+              f"{arch}: decode vs prefill max abs err {r['max_abs_err']}, "
+              f"layers {r['layer_err'][:held]}")
         dvp.append({"arch": arch, "layers": layers, "batch": B,
-                    "prompt_len": S, "max_abs_err": r["max_abs_err"],
+                    "prompt_len": S, "capacity_factor": (
+                        cfg.moe.capacity_factor if cfg.moe else None),
+                    "max_abs_err": r["max_abs_err"],
                     "logit_max_abs": r["logit_max_abs"],
-                    "layer_err": r["layer_err"]})
-        del model
+                    "layer_err": r["layer_err"],
+                    "moe_layers_that_dropped": drop_layers,
+                    "layers_held": held, "logits_held": held == layers})
+        del model, seen
         torch.cuda.empty_cache()
     out = {"dtype": "f32", "card_vs_cpu": card_cpu,
            "decode_vs_prefill": dvp,
            "tolerances": {"rel_to_max": XLSTM_REL_TOL,
-                          "token_gap": TOKEN_GAP,
+                          "token_gap": TOKEN_GAP, "route_gap": ROUTE_GAP,
                           "decode_atol": DECODE_ATOL,
                           "decode_rtol": DECODE_RTOL}}
     emit("zoo_crosscheck", **out)
@@ -2168,7 +2400,8 @@ def serve_cli_phase(torch, eps: float) -> dict:
 def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
     """Kernel time on the card for one call of ``fn`` under the
     profiler, with the top kernels, and for each ``match`` entry (name:
-    substring) the time of the kernels whose names hold the substring.
+    a substring, or a tuple of them) the time of the kernels whose names
+    hold one.
     ``busy_share`` is the device time over ``wall_ms``, the timed
     (unprofiled) run of the same work.  The profiled wall time includes
     the profiler's own start-up and is reported only as such.  Where the
@@ -2193,7 +2426,9 @@ def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
            "top_kernels": [{"name": n[:80], "ms": t, "count": c}
                            for n, t, c in kernels[:top]]}
     for name, sub in (match or {}).items():
-        ms = sum(t for n, t, _ in kernels if sub in n) if busy else None
+        subs = (sub,) if isinstance(sub, str) else sub
+        ms = (sum(t for n, t, _ in kernels if any(x in n for x in subs))
+              if busy else None)
         out[f"{name}_ms"] = ms
         out[f"{name}_share"] = ms / busy if busy else None
     return out
@@ -2394,9 +2629,12 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
     (q, k, v read, o written) over 3.35 TB/s or the unmasked pairs'
     4 hd operations a head over the bf16 tensor cores' 989 TFLOP/s,
     the larger.  SDPA rounds P to bf16 for its P V product; the kernel
-    keeps P in f32 (two TF32 passes)."""
+    keeps P in f32 (two TF32 passes).  SDPA has no softcap: at grok's
+    shape (softcap 30) it computes attention without one, so its time is
+    beside the kernel's but its error is taken against the plain version
+    without softcap."""
     out = []
-    for B, S, H, KV, hd, causal, window, label in ZOO_TIMES:
+    for B, S, H, KV, hd, causal, window, softcap, label in ZOO_TIMES:
         g = torch.Generator(device="cuda").manual_seed(S + hd)
         q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
         k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g)
@@ -2415,15 +2653,18 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
                 qh, kh, vh, attn_mask=mask,
                 is_causal=causal and mask is None)
 
-        def kern(q=q, k=k, v=v, causal=causal, window=window):
+        def kern(q=q, k=k, v=v, causal=causal, window=window,
+                 softcap=softcap):
             return fa_ops.flash_attention(q, k, v, causal=causal,
-                                          window=window)
+                                          window=window, softcap=softcap)
 
-        def plain(q=q, k=k, v=v, causal=causal, window=window):
+        def plain(q=q, k=k, v=v, causal=causal, window=window,
+                  softcap=softcap):
             return fa_ops.attention_plain(q, k, v, causal=causal,
-                                          window=window)
+                                          window=window, softcap=softcap)
 
         ref = plain().float()
+        lib_ref = plain(softcap=0.0).float() if softcap else ref
         nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
         flops = 4 * B * H * hd * attention_pairs(S, causal, window)
         bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
@@ -2431,7 +2672,8 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
         out.append({
             "config": label, "dtype": "bfloat16",
             "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                      "causal": causal, "window": window},
+                      "causal": causal, "window": window,
+                      "softcap": softcap},
             "ms": events_ms(torch, kern, iters=20, warmup=3),
             "device_ms": profiled_ms(torch, kern, SOURCES[
                 "flash_attention"][2], iters=10),
@@ -2443,8 +2685,8 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
             "bound_ms": bms, "bound_by": by,
             "max_abs_err": float((kern().float() - ref).abs().max()),
             "library_max_abs_err": float(
-                (sdpa().transpose(1, 2).float() - ref).abs().max())})
-        del q, k, v, qh, kh, vh, mask, ref
+                (sdpa().transpose(1, 2).float() - lib_ref).abs().max())})
+        del q, k, v, qh, kh, vh, mask, ref, lib_ref
         torch.cuda.empty_cache()
     return out
 

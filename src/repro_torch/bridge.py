@@ -11,9 +11,10 @@ structural:
   ``u`` of ``units.l{j}`` becomes ``layers.{u * P + j}``, and the
   remainder layers ``rem.l{j}`` follow as ``layers.{U * P + j}``;
 * attention ``wq``/``wk``/``wv`` (d, H, hd) and ``wo`` (H, hd, d),
-  the mLSTM's and sLSTM's ``mix`` leaves, layernorm ``scale``/``bias``,
-  the MLP's ``wi``/``wo``, the tied ``embed.table`` and ``final_norm``
-  copy as they are;
+  the Mamba, mLSTM and sLSTM ``mix`` leaves (``mix.A_log``, ...),
+  layernorm ``scale``/``bias``, the MLP's ``wi``/``wo``, the MoE MLP's
+  ``mlp.router``, ``mlp.wi``/``wg``/``wo`` and ``mlp.shared.*``, the
+  tied ``embed.table`` and ``final_norm`` copy as they are;
 * a router tree's ``encoder``, ``head`` and optional ``unc``.
 
 ``model_state`` and ``router_state`` map a tree, or a tree of its
@@ -36,7 +37,8 @@ from repro_torch.core.library import ExpertSpec, ModelLibrary
 from repro_torch.core.router import Router, RouterConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import KINDS
-from repro_torch.models.common import AttnConfig, ModelConfig, SSMConfig
+from repro_torch.models.common import (AttnConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.models.model import Model, count_params
 
 
@@ -92,24 +94,25 @@ def _load(module: nn.Module, state: dict) -> None:
     module.load_state_dict(tensors, strict=True)
 
 
+def _fields(cls, obj):
+    return None if obj is None else cls(
+        **{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
 def model_config_from(cfg) -> ModelConfig:
     """The port's ``ModelConfig`` for a JAX-package config, read field
-    by field; its blocks must be dense attention, mLSTM or sLSTM ones
-    (no MoE, no Mamba)."""
+    by field (with its ``attn``, ``moe`` and ``ssm``); a block kind the
+    port does not have raises."""
     kinds = set(cfg.layer_pattern)
-    if cfg.moe is not None or any(cfg.moe_pattern) or not kinds <= set(KINDS):
-        raise ValueError(f"{cfg.name}: blocks {sorted(kinds)} with moe "
-                         f"{cfg.moe_pattern}; only {KINDS} without MoE are "
-                         f"ported")
-    attn = AttnConfig(**{f.name: getattr(cfg.attn, f.name)
-                         for f in dataclasses.fields(AttnConfig)})
-    ssm = None if cfg.ssm is None else SSMConfig(
-        **{f.name: getattr(cfg.ssm, f.name)
-           for f in dataclasses.fields(SSMConfig)})
+    if not kinds <= set(KINDS):
+        raise ValueError(f"{cfg.name}: block kind(s) "
+                         f"{sorted(kinds - set(KINDS))} not in {KINDS}")
+    nested = {"attn": AttnConfig, "moe": MoEConfig, "ssm": SSMConfig}
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)
-              if f.name not in ("attn", "ssm")}
-    return ModelConfig(attn=attn, ssm=ssm, **fields)
+              if f.name not in nested}
+    return ModelConfig(**fields, **{name: _fields(cls, getattr(cfg, name))
+                                    for name, cls in nested.items()})
 
 
 def model_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:

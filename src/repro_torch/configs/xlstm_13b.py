@@ -19,7 +19,7 @@ CONFIG = ModelConfig(
     d_ff=0,
     vocab_size=50304,
     attn=AttnConfig(rope_theta=0.0),
-    ssm=SSMConfig(num_heads=4, expand=2),
+    ssm=SSMConfig(kind="mlstm", num_heads=4, expand=2),
     layer_pattern=("mlstm", "mlstm", "mlstm", "mlstm",
                    "mlstm", "mlstm", "mlstm", "slstm"),
     moe_pattern=(False,) * 8,

@@ -83,13 +83,14 @@ def prefill_cache_from_kv(k, v, window: int, dtype, capacity=None) -> dict:
     """The decode cache from a prefill's (B, S, KV, hd) keys and values.
 
     A full-attention layer keeps ``capacity`` slots (default S; pass S +
-    the tokens still to decode), zero past S.  A window layer keeps the
-    ring of ``window`` slots with slot == absolute position % window:
+    the tokens still to decode), zero past S; a capacity below S keeps
+    all S, as the reference does.  A window layer keeps the ring of
+    ``window`` slots with slot == absolute position % window:
     zero-padded when S < window, else the last ``window`` positions
     rolled by S % window."""
     S = k.shape[1]
     if window <= 0:
-        cap = capacity or S
+        cap = max(capacity or S, S)
     elif S <= window:
         cap = window
     else:

@@ -1,14 +1,14 @@
-"""Model configuration: the dense encoders and decoders of the zoo and
-the xLSTM family.
+"""Model configuration of every architecture family of the zoo: dense
+encoders and decoders, MoE, the xLSTM family and the Mamba hybrid.
 
 The fields are ported from ``repro.models.common``: attention with
-RoPE or Qwen2-VL's mRoPE, sliding windows and softcap; the recurrent
-family's ``ssm``; the repeating-unit patterns ``layer_pattern`` /
-``moe_pattern``; the modality stub ``embed_inputs``; and the
-metadata ``max_seq_len`` and ``source``.  MoE comes later; a
-``moe_pattern`` that marks any layer raises.  ``torch_dtype`` takes the
-place of ``jnp_dtype``.  ``InputShape`` and ``INPUT_SHAPES`` are the
-benchmark shapes ``launch.specs`` judges.
+RoPE or Qwen2-VL's mRoPE, sliding windows and softcap; the MoE MLP's
+``moe`` (``MoEConfig``); the recurrent blocks' ``ssm``; the
+repeating-unit patterns ``layer_pattern`` / ``moe_pattern``; the
+modality stub ``embed_inputs``; and the metadata ``max_seq_len`` and
+``source``.  ``torch_dtype`` takes the place of ``jnp_dtype``.
+``InputShape`` and ``INPUT_SHAPES`` are the benchmark shapes
+``launch.specs`` judges.
 """
 
 from __future__ import annotations
@@ -20,9 +20,20 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    d_ff_expert: int = 0          # per-expert hidden; 0 -> use model d_ff
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
-    """The recurrent blocks' widths: the fields of the JAX package's
-    ``SSMConfig`` that mLSTM and sLSTM read (Mamba's come with Mamba)."""
+    kind: str = "mamba"           # "mamba" | "mlstm" | "slstm"
+    d_state: int = 16
+    d_conv: int = 4
     expand: int = 2
     num_heads: int = 4            # for m/sLSTM
 
@@ -53,7 +64,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     attn: AttnConfig = AttnConfig()
-    family: str = "dense"         # dense | ssm | vlm | audio (ported so far)
+    family: str = "dense"         # dense | moe | ssm | hybrid | vlm | audio
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # per-layer block kinds within one repeating unit; layers follow it
     # unit by unit, then the first num_layers % len(pattern) kinds
@@ -75,10 +87,9 @@ class ModelConfig:
         if len(self.moe_pattern) != len(self.layer_pattern):
             raise ValueError(f"{self.name}: moe_pattern and layer_pattern "
                              f"differ in length")
-        if any(self.moe_pattern):
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (ROADMAP.md "
-                f"queue 1, item 14)")
+        if any(self.moe_pattern) and self.moe is None:
+            raise ValueError(f"{self.name}: moe_pattern marks MoE layers "
+                             f"but moe is None")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -95,9 +106,10 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    def reduced(self, num_layers=2, d_model=256) -> "ModelConfig":
+    def reduced(self, num_layers=2, d_model=256,
+                max_experts=4) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests (the JAX
-        package's ``reduced`` without its MoE fields)."""
+        package's ``reduced``)."""
         unit = len(self.layer_pattern)
         layers = max(num_layers, unit)
         layers -= layers % unit
@@ -106,6 +118,16 @@ class ModelConfig:
         while heads % kv:
             kv -= 1
         d_model = min(d_model, 512)
+        moe = None
+        if self.moe is not None:
+            ne = min(self.moe.num_experts, max_experts)
+            moe = dataclasses.replace(
+                self.moe,
+                num_experts=ne,
+                top_k=min(self.moe.top_k, ne),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                d_ff_expert=(d_model * 2 if self.moe.d_ff_expert else 0),
+            )
         ssm = self.ssm
         if ssm is not None:
             ssm = dataclasses.replace(ssm, num_heads=min(ssm.num_heads, 2))
@@ -119,6 +141,7 @@ class ModelConfig:
             head_dim=0,
             d_ff=d_model * 3,
             vocab_size=min(self.vocab_size, 512),
+            moe=moe,
             ssm=ssm,
             dtype="float32",
             max_seq_len=2048,

@@ -4,8 +4,9 @@
 (``table``), one ``Block`` per layer where the JAX package stacks a
 ``units`` tree along a leading layer axis and scans (plus its ``rem``
 layers), ``final_norm``, and ``head`` when embeddings are untied.
-Layer ``i`` has kind ``layer_pattern[i % len(layer_pattern)]``: the
-units one after another, then the remainder layers.  The layer loop is
+Layer ``i`` has kind ``layer_pattern[i % len(layer_pattern)]`` and an
+MoE MLP where ``moe_pattern[i % len(moe_pattern)]`` is set: the units
+one after another, then the remainder layers.  The layer loop is
 a Python loop.  Modes: ``train`` returns logits, ``encode`` the
 final-norm hidden states; ``prefill`` and ``decode`` return logits and
 a list with one state per layer (a recurrent state, or an attention
@@ -35,20 +36,23 @@ class Model(nn.Module):
         self.cfg = cfg
         dtype = cfg.torch_dtype
         self.embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
-        pat = cfg.layer_pattern
-        self.layers = nn.ModuleList(Block(gen, cfg, pat[i % len(pat)], i)
-                                    for i in range(cfg.num_layers))
+        pat, moes = cfg.layer_pattern, cfg.moe_pattern
+        self.layers = nn.ModuleList(
+            Block(gen, cfg, pat[i % len(pat)], i, moes[i % len(moes)])
+            for i in range(cfg.num_layers))
         self.final_norm = init_norm(cfg.d_model, cfg.norm_kind)
         if not cfg.tie_embeddings:
             self.head = init_dense(gen, cfg.d_model, cfg.vocab_size, dtype)
 
     def forward(self, tokens=None, mode: str = "train", state=None,
-                index=0, embeds=None, cache_capacity=None):
-        """``train``: logits; ``encode``: hidden states; ``prefill``:
-        (logits, states), every attention cache of ``cache_capacity``
-        slots (default S; window layers their ring); ``decode``:
-        (logits, states) one step on from ``state``, the tokens at
-        position ``index``.  ``embeds`` (B, S, d) replaces ``tokens``."""
+                index=0, embeds=None, cache_capacity=None, with_aux=False):
+        """``train``: logits, or with ``with_aux`` (logits, the MoE
+        layers' load-balance terms summed in layer order, an f32 scalar);
+        ``encode``: hidden states; ``prefill``: (logits, states), every
+        attention cache of ``cache_capacity`` slots (default S; window
+        layers their ring); ``decode``: (logits, states) one step on
+        from ``state``, the tokens at position ``index``.  ``embeds``
+        (B, S, d) replaces ``tokens``."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         if mode == "decode" and state is None:
@@ -62,11 +66,14 @@ class Model(nn.Module):
         if cfg.attn.use_mrope:   # text: the three streams are equal
             positions = positions[None].expand(3, B, S)
         states = []
+        aux = torch.zeros((), device=x.device) if with_aux else None
         for i, block in enumerate(self.layers):
-            x, st = block(x, mode=mode, positions=positions,
-                          state=state[i] if mode == "decode" else None,
-                          index=index, cache_capacity=cache_capacity)
+            x, st, a = block(x, mode=mode, positions=positions,
+                             state=state[i] if mode == "decode" else None,
+                             index=index, cache_capacity=cache_capacity)
             states.append(st)
+            if with_aux and block.use_moe:
+                aux = aux + a
         x = apply_norm(self.final_norm, x, cfg.norm_eps, cfg.norm_kind)
         if mode == "encode":
             return x
@@ -76,7 +83,7 @@ class Model(nn.Module):
             logits = apply_dense(self.head, x)
         if mode in ("prefill", "decode"):
             return logits, states
-        return logits
+        return (logits, aux) if with_aux else logits
 
     def _embed_in(self, tokens, embeds):
         """The first block's input.  ``embed_scale`` multiplies by
@@ -140,10 +147,11 @@ def cross_entropy(logits, targets, mask):
 
 def lm_loss(model: Model, batch):
     """Causal-LM (decoder) or MLM (encoder) loss. Returns (loss,
-    metrics).  No port config has MoE layers, so the loss is the CE
-    alone (the reference adds ``router_aux_weight * aux``, 0 here)."""
+    metrics): the CE plus ``router_aux_weight`` times the MoE layers'
+    summed load-balance term, with {"ce", "aux"}."""
     cfg = model.cfg
-    logits = forward(model, batch, mode="train")
+    logits, aux = model(batch.get("tokens"), mode="train",
+                        embeds=batch.get("embeds"), with_aux=True)
     if cfg.is_encoder:
         ce = cross_entropy(logits, batch["targets"], batch["mask"])
     else:
@@ -154,7 +162,8 @@ def lm_loss(model: Model, batch):
         if mask is None:
             mask = torch.ones_like(tokens)
         ce = cross_entropy(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
-    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+    loss = ce + cfg.moe.router_aux_weight * aux if cfg.moe else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 def prefill(model: Model, batch, cache_capacity=None):

@@ -1,14 +1,22 @@
-"""Recurrent cells of the xLSTM family: mLSTM and sLSTM
-(``repro.models.ssm`` without Mamba, which comes with the rest of the
-model zoo).
+"""Recurrent cells: Mamba (selective SSM), mLSTM and sLSTM
+(``repro.models.ssm``).
 
 Each cell has the JAX package's three entry points:
   init_<cell>(gen, cfg, dtype)             -> nn.ParameterDict
   <cell>_full(p, x, cfg, state=None)       -> (y, final_state)   prefill
   <cell>_step(p, x1, state, cfg)           -> (y1, state)        decode
 
-The dtype seams are the JAX package's: q/k/v come from products in the
-model's type and are cast to f32; the mLSTM gates are
+Mamba is plain PyTorch, as the reference's is XLA: ``mamba_full``
+runs chunks of ``pick_chunk(T, 256)`` steps one after another, carrying
+the state (f32 ``h`` (B, di, ds) and the causal convolution's last
+``d_conv - 1`` inputs ``conv`` in the activations' type); within a chunk
+the linear recurrence h_t = dA_t h_{t-1} + dBx_t is a scan of log2(L)
+doubling steps over (B, L, di, ds) f32 tensors (the reference's
+``associative_scan`` with the same combine), with no loop over time.
+``mamba_step`` is the recurrence for one token.
+
+The mLSTM/sLSTM dtype seams are the JAX package's: q/k/v come from
+products in the model's type and are cast to f32; the mLSTM gates are
 ``main.float() @ w_if + b_if`` in f32; ``h * out_norm`` is f32 and cast
 to the model's type before ``* silu(og)`` and ``out_proj``; the sLSTM's
 ``r_h`` and state are f32, with ``n`` initialised to ones.
@@ -32,10 +40,133 @@ from repro_torch.kernels.mlstm_scan.ops import (log_sigmoid, mlstm_chunkwise,
                                                 mlstm_sequential)
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import trunc_normal
+from repro_torch.models.scan_utils import pick_chunk
 
 
 def _params(**tensors) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+
+
+# =================================================================== mamba
+
+def _mamba_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    dt_rank = max(1, math.ceil(cfg.d_model / 16))
+    return di, s.d_state, s.d_conv, dt_rank
+
+
+def init_mamba(gen, cfg: ModelConfig, dtype=torch.float32):
+    d = cfg.d_model
+    di, ds, dc, dtr = _mamba_dims(cfg)
+    in_proj = trunc_normal((d, 2 * di), 1 / math.sqrt(d), gen, dtype)
+    conv_w = trunc_normal((dc, di), 1 / math.sqrt(dc), gen, dtype)
+    x_proj = trunc_normal((di, dtr + 2 * ds), 1 / math.sqrt(di), gen, dtype)
+    dt_w = trunc_normal((dtr, di), 1 / math.sqrt(dtr), gen, dtype)
+    # dt's bias: softplus^-1 of a step drawn log-uniform in [1e-3, 1e-1]
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand(di, generator=gen) * (hi - lo) + lo
+    return _params(
+        in_proj=in_proj, conv_w=conv_w, conv_b=torch.zeros(di, dtype=dtype),
+        x_proj=x_proj, dt_w=dt_w,
+        dt_b=torch.log(torch.expm1(torch.exp(u))),
+        A_log=torch.log(torch.arange(1, ds + 1, dtype=torch.float32)
+                        ).expand(di, ds).contiguous(),
+        D=torch.ones(di),
+        out_proj=trunc_normal((di, d), 1 / math.sqrt(di), gen, dtype))
+
+
+def init_mamba_state(batch: int, cfg: ModelConfig, dtype=torch.float32,
+                     device=None) -> dict:
+    di, ds, dc, _ = _mamba_dims(cfg)
+    return {"h": torch.zeros(batch, di, ds, device=device),
+            "conv": torch.zeros(batch, dc - 1, di, dtype=dtype,
+                                device=device)}
+
+
+def _scan(a, b):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t along dim 1 from h = 0,
+    and the running product of a: (a_cum, b_cum), by log2(T) doubling
+    steps of the reference's combine (l, r) -> (a_l a_r, a_r b_l + b_r)."""
+    T, s = a.shape[1], 1
+    while s < T:
+        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], 1)
+        a = torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], 1)
+        s *= 2
+    return a, b
+
+
+def _mamba_inner(p, xs_conv, dt, Bm, Cm, h0):
+    """Selective scan over one chunk.  xs_conv (B, T, di) f32 post-conv
+    activations; dt (B, T, di); Bm/Cm (B, T, ds); h0 (B, di, ds).
+    Returns (y (B, T, di), hT)."""
+    A = -torch.exp(p["A_log"])                                # (di, ds)
+    dA = torch.exp(dt[..., None] * A)                         # (B,T,di,ds)
+    dBx = (dt * xs_conv)[..., None] * Bm[:, :, None, :]       # (B,T,di,ds)
+    a_cum, b_cum = _scan(dA, dBx)
+    h = a_cum * h0[:, None] + b_cum
+    y = torch.einsum("btds,bts->btd", h, Cm) + p["D"] * xs_conv
+    return y, h[:, -1]
+
+
+def _mamba_preproj(p, x):
+    return (x @ p["in_proj"]).chunk(2, dim=-1)                # xs, z
+
+
+def _mamba_postconv(p, xc, cfg):
+    """xc: conv output (B, T, di).  Returns dt, Bm, Cm (f32)."""
+    _, ds, _, dtr = _mamba_dims(cfg)
+    dbc = (xc @ p["x_proj"]).float()
+    dt_in, Bm, Cm = dbc.split([dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt_in @ p["dt_w"].float() + p["dt_b"])
+    return dt, Bm, Cm
+
+
+def _causal_conv(p, xs, prev, dc):
+    """xs: (B, T, di); prev: (B, dc-1, di) left context.  Returns (out,
+    new_prev): the depthwise causal convolution then silu, and the
+    last dc-1 inputs."""
+    ext = torch.cat([prev.to(xs.dtype), xs], 1)               # (B,T+dc-1,di)
+    T = xs.shape[1]
+    out = sum(ext[:, i:i + T] * p["conv_w"][i] for i in range(dc))
+    out = F.silu(out + p["conv_b"])
+    new_prev = ext[:, -(dc - 1):] if dc > 1 else prev
+    return out, new_prev
+
+
+def mamba_full(p, x, cfg: ModelConfig, state=None, chunk=256):
+    """x (B, T, d) -> (y (B, T, d), state), chunk by chunk."""
+    B, T, _ = x.shape
+    dc = _mamba_dims(cfg)[2]
+    if state is None:
+        state = init_mamba_state(B, cfg, x.dtype, x.device)
+    xs, z = _mamba_preproj(p, x)
+    ck = pick_chunk(T, chunk)
+    h, conv = state["h"], state["conv"]
+    ys = []
+    for t in range(0, T, ck):
+        xc, conv = _causal_conv(p, xs[:, t:t + ck], conv, dc)
+        dt, Bm, Cm = _mamba_postconv(p, xc, cfg)
+        y, h = _mamba_inner(p, xc.float(), dt, Bm, Cm, h)
+        ys.append(y)
+    out = torch.cat(ys, 1).to(x.dtype) * F.silu(z)
+    return out @ p["out_proj"], {"h": h, "conv": conv}
+
+
+def mamba_step(p, x1, state, cfg: ModelConfig):
+    """x1: (B, 1, d) -> (y1, state)."""
+    dc = _mamba_dims(cfg)[2]
+    xs, z = _mamba_preproj(p, x1)
+    xc, new_conv = _causal_conv(p, xs, state["conv"], dc)
+    dt, Bm, Cm = _mamba_postconv(p, xc, cfg)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[:, 0, :, None] * A)                     # (B,di,ds)
+    xc0 = xc[:, 0].float()
+    dBx = (dt[:, 0] * xc0)[..., None] * Bm[:, 0, None, :]
+    h = dA * state["h"] + dBx
+    y = torch.einsum("bds,bs->bd", h, Cm[:, 0]) + p["D"] * xc0
+    out = y[:, None].to(x1.dtype) * F.silu(z)
+    return out @ p["out_proj"], {"h": h, "conv": new_conv}
 
 
 # =================================================================== mLSTM

@@ -29,9 +29,9 @@ tensors, ``_embed_batch`` within 1e-5 of the CPU's largest magnitude,
 and a ``DiskKVStore``-backed engine answers everything from T2 after a
 restart.  Attention in bf16 and at head_dim up to 256: bf16 outputs
 within one bf16 ulp of each element plus 2e-5 (the f32 tolerance before
-both round), f32 at the f32 tolerances.  The zoo's reduced decoders on
-the card against the CPU in f32: logits and caches rtol=atol=1e-4, the
-same greedy tokens.
+both round), f32 at the f32 tolerances.  The zoo's reduced decoders
+(dense, MoE and the Mamba hybrid) on the card against the CPU in f32:
+logits, caches and Mamba states rtol=atol=1e-4, the same greedy tokens.
 """
 
 import copy
@@ -137,6 +137,7 @@ BF16_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
     (2, 77, 90, 4, 2, 136, False, 0, 30.0),     # odd hd / 8 above 128
     (1, 50, 50, 2, 1, 200, True, 0, 5.0),
     (1, 20, 8, 2, 2, 256, False, 3, 0.0),       # rows that see no key
+    (1, 256, 256, 48, 8, 128, True, 0, 30.0),   # grok-1: GQA 48:8, softcap
 ]
 
 
@@ -406,17 +407,19 @@ def test_xlstm_on_card_matches_cpu():
 
 
 ZOO_CARD = [("tinyllama-1.1b", None, False), ("gemma3-4b", 8, False),
-            ("qwen2-vl-72b", None, True), ("starcoder2-15b", 8, False)]
+            ("qwen2-vl-72b", None, True), ("starcoder2-15b", 8, False),
+            ("qwen2-moe-a2.7b", None, False), ("jamba-v0.1-52b", None, False)]
 
 
 @pytest.mark.parametrize("arch,window,embeds", ZOO_CARD)
 def test_zoo_decoder_on_card_matches_cpu(arch, window, embeds):
-    """A reduced decoder (f32, d 128): prefill into the KV cache through
-    the attention kernel and 6 greedy decode steps on the card against
-    the plain versions on the CPU, with the window configs' rings rolled
-    (window 8, prompt 40).  One attention launch per layer in the
-    prefill, none in decode (XLA-style plain decode, as in the JAX
-    package)."""
+    """A reduced decoder (f32, d 128): prefill into the KV cache (and
+    jamba's Mamba states) through the attention kernel and 6 greedy
+    decode steps on the card against the plain versions on the CPU, with
+    the window configs' rings rolled (window 8, prompt 40); the MoE
+    layers route on each side.  One attention launch per attention layer
+    in the prefill, none in decode (XLA-style plain decode, as in the
+    JAX package)."""
     import dataclasses
     _card()
     cfg = get_config(arch).reduced(d_model=128)
@@ -446,7 +449,9 @@ def test_zoo_decoder_on_card_matches_cpu(arch, window, embeds):
                     [{n: a.cpu() for n, a in x.items()} for x in st]))
     (lc, tc, pc, dc, sc), (lg, tg, pg, dg, sg) = out
     assert (pc, dc) == (0, 0)
-    assert (pg, dg) == (cfg.num_layers, 0)
+    n_attn = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == "attn"
+                 for i in range(cfg.num_layers))
+    assert (pg, dg) == (n_attn, 0)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(tg, tc)
     for a, b in zip(sg, sc):

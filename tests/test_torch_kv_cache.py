@@ -3,8 +3,9 @@ package's (``repro.models.attention``), and mRoPE against
 ``repro.models.layers.apply_mrope``, on the same numpy inputs.
 
 * ``init_kv_cache``: shapes, types, zeros;
-* ``prefill_cache_from_kv``: full-attention capacity padding, and the
-  window ring with S < W, S == W, S > W and S a multiple of W;
+* ``prefill_cache_from_kv``: full-attention capacity padding (and a
+  capacity below S, which keeps all S), and the window ring with
+  S < W, S == W, S > W and S a multiple of W;
 * ``attend_decode``: one step from a prefill's cache (full, window,
   GQA, softcap, bias, mRoPE), and a ring that wraps, token by token
   from an empty cache past the window (the reference's
@@ -103,10 +104,11 @@ def test_init_kv_cache_matches(dtype, T, kv, hd):
         assert not got[name].any()
 
 
-# (S, window, capacity): full attention at its own length and padded;
-# the ring short of, at, past and at twice its window
-CACHE_CASES = [(6, 0, None), (6, 0, 10), (5, 8, None), (8, 8, None),
-               (13, 8, None), (16, 8, None), (21, 8, 40)]
+# (S, window, capacity): full attention at its own length, padded, and
+# given a capacity below S (kept whole); the ring short of, at, past and
+# at twice its window
+CACHE_CASES = [(6, 0, None), (6, 0, 10), (6, 0, 4), (6, 0, 1), (5, 8, None),
+               (8, 8, None), (13, 8, None), (16, 8, None), (21, 8, 40)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,9 +1,16 @@
-"""The port's mLSTM and sLSTM cells (``repro_torch.models.ssm``) against
+"""The port's recurrent cells (``repro_torch.models.ssm``) against
 ``repro.models.ssm`` on the same weights (carried by the bridge) and
 the same numpy inputs: ``mlstm_full`` (the JAX default, the chunkwise
 closed form; the port runs the ``mlstm_scan`` wrapper, whose plain
 version runs on the CPU), ``mlstm_step``, ``slstm_full`` and
-``slstm_step``, comparing the outputs and every state leaf.
+``slstm_step``, comparing the outputs and every state leaf.  Mamba:
+``mamba_full`` (one chunk and two) and ``mamba_step`` against the
+reference's, output and state; ``mamba_step`` token by token against
+``mamba_full``; ``mamba_full`` at chunk 4 against chunk 256; and
+``init_mamba``'s deterministic leaves (``A_log`` to one f32 ulp: the
+libraries' logs differ in the last bit) and the range of its ``dt_b``
+against the reference's.  Mamba is held to rtol=atol=1e-5 (f32; its
+scan combines in another tree order).
 
 Tolerance: f32 atol=rtol=1e-4 (sums in another order; the mLSTM's h
 divides by a running denominator).  bf16 (the config's default type):
@@ -30,6 +37,7 @@ from repro.models.common import ModelConfig, SSMConfig  # noqa: E402
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
 BF16_STATE = dict(atol=1e-2, rtol=1e-2)
+MAMBA = dict(atol=1e-5, rtol=1e-5)
 
 
 def _cfg(dtype="float32", d=32, heads=2):
@@ -141,3 +149,93 @@ def test_bf16_full_and_step(kind):
     with torch.no_grad():
         ty1, _ = step[1](tp, tx1, tst, tcfg)
     _close(ty1, jy1, BF16)
+
+
+# =================================================================== mamba
+
+def _mamba_cfg(d=32):
+    return ModelConfig(name="m", family="hybrid", num_layers=1, d_model=d,
+                       num_heads=2, num_kv_heads=2, d_ff=0, vocab_size=64,
+                       ssm=SSMConfig(kind="mamba", d_state=16, d_conv=4,
+                                     expand=2),
+                       layer_pattern=("mamba",), moe_pattern=(False,),
+                       dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    """(JAX config, port config, JAX params, torch params)."""
+    cfg = _mamba_cfg()
+    jp, _ = jssm.init_mamba(jax.random.PRNGKey(4), cfg, jnp.float32)
+    # a non-zero conv bias, so the convolution's bias path is held too
+    jp = dict(jp, conv_b=jnp.linspace(-0.5, 0.5, jp["conv_b"].shape[0]))
+    return (cfg, bridge.model_config_from(cfg)) + _both(jp)
+
+
+@pytest.mark.parametrize("T", [40, 300])     # one chunk; two of 150
+def test_mamba_full_and_step_match(mamba, T):
+    cfg, tcfg, jp, tp = mamba
+    jx, tx = _x(2, T, cfg.d_model, jnp.float32, seed=T)
+    jy, jst = jssm.mamba_full(jp, jx, cfg)
+    with torch.no_grad():
+        ty, tst = tssm.mamba_full(tp, tx, tcfg)
+    _close(ty, jy, MAMBA)
+    assert set(tst) == set(jst) == {"h", "conv"}
+    for leaf in jst:
+        _close(tst[leaf], jst[leaf], MAMBA)
+    jx1, tx1 = _x(2, 1, cfg.d_model, jnp.float32, seed=T + 1)
+    jy1, jst1 = jssm.mamba_step(jp, jx1, jst, cfg)
+    with torch.no_grad():
+        ty1, tst1 = tssm.mamba_step(tp, tx1, tst, tcfg)
+    _close(ty1, jy1, MAMBA)
+    for leaf in jst1:
+        _close(tst1[leaf], jst1[leaf], MAMBA)
+
+
+def test_mamba_step_by_step_equals_full_and_chunks_do_not_matter(mamba):
+    _, tcfg, _, tp = mamba
+    _, tx = _x(2, 24, tcfg.d_model, jnp.float32, seed=9)
+    with torch.no_grad():
+        y, st = tssm.mamba_full(tp, tx, tcfg)
+        y4, st4 = tssm.mamba_full(tp, tx, tcfg, chunk=4)
+        state = tssm.init_mamba_state(2, tcfg)
+        steps = []
+        for t in range(tx.shape[1]):
+            y1, state = tssm.mamba_step(tp, tx[:, t:t + 1], state, tcfg)
+            steps.append(y1)
+    for got, got_st in ((torch.cat(steps, 1), state), (y4, st4)):
+        _close(got, y, MAMBA)
+        for leaf in st:
+            _close(got_st[leaf], st[leaf], MAMBA)
+
+
+def test_init_mamba_matches_the_reference():
+    cfg = _mamba_cfg()
+    tcfg = bridge.model_config_from(cfg)
+    jp, _ = jssm.init_mamba(jax.random.PRNGKey(5), cfg, jnp.float32)
+    tp = tssm.init_mamba(torch.Generator().manual_seed(5), tcfg)
+    assert set(tp) == set(jp)
+    for name in jp:
+        assert tuple(tp[name].shape) == jp[name].shape, name
+        assert str(tp[name].dtype).removeprefix("torch.") == str(
+            jp[name].dtype), name
+    for name in ("D", "conv_b"):
+        np.testing.assert_array_equal(tp[name].detach().numpy(),
+                                      np.asarray(jp[name]))
+    # log(1..16): the two libraries' f32 log differ in the last bit of one
+    np.testing.assert_array_max_ulp(tp["A_log"].detach().numpy(),
+                                    np.asarray(jp["A_log"]), maxulp=1)
+    # dt_b is softplus^-1 of a step drawn log-uniform in [1e-3, 1e-1]
+    for dt_b in (tp["dt_b"].detach(), torch.tensor(np.asarray(
+            jp["dt_b"]))):
+        step = torch.nn.functional.softplus(dt_b)
+        assert bool(((step >= 1e-3 * (1 - 1e-5))
+                     & (step <= 1e-1 * (1 + 1e-5))).all())
+        assert float(step.log().std()) > 0.5      # spread, not constant
+    jst = jssm.init_mamba_state(3, cfg, jnp.bfloat16)
+    tst = tssm.init_mamba_state(3, tcfg, torch.bfloat16)
+    for leaf in jst:
+        assert tuple(tst[leaf].shape) == jst[leaf].shape
+        assert str(tst[leaf].dtype).removeprefix("torch.") == str(
+            jst[leaf].dtype)
+        assert not tst[leaf].any()

@@ -1,11 +1,14 @@
-"""The zoo's dense configs end to end: the port's models (weights carried
-by ``bridge.model_from_jax`` from ``repro.models.model.init_model``)
+"""The zoo's configs end to end: the port's models (weights carried by
+``bridge.model_from_jax`` from ``repro.models.model.init_model``)
 against the JAX package's on the same numpy inputs.
 
-* Every ported config equals the JAX one field by field through
-  ``bridge.model_config_from``, in full and ``reduced()``.
+* Every config equals the JAX one field by field through
+  ``bridge.model_config_from``, in full and ``reduced()``; the registry
+  lists the JAX package's ten ids in its order.
 * For each config's ``reduced()`` variant: prefill logits, every
-  layer's KV cache (capacity S + 4), and 4 greedy decode steps through
+  layer's KV cache (capacity S + 4) or Mamba state, and 4 greedy decode
+  steps (the MoE decoders route and drop per call, as the reference
+  does; jamba's one 8-layer unit holds Mamba, attention and MoE) through
   the port's ``prefill_step`` / ``serve_step`` (``device="cpu"``)
   against ``repro.models.model.prefill`` / ``decode_step`` + argmax
   (``attn_impl="xla"``; the Pallas kernel does not run in interpret
@@ -19,8 +22,9 @@ against the JAX package's on the same numpy inputs.
   ``INPUT_SHAPES`` entry.
 * The embedding scale in bf16, element for element.
 
-Tolerance: f32 logits within 1e-4 of the largest logit, caches within
-1e-5 (rtol and atol) per op; greedy tokens identical.
+Tolerance: f32 logits within 1e-4 of the largest logit, caches and
+Mamba states within 1e-5 (rtol and atol) per op; greedy tokens
+identical.
 """
 
 import dataclasses
@@ -44,13 +48,15 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import list_archs as jlist_archs  # noqa: E402
 from repro.launch import specs as jspecs  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.models.common import INPUT_SHAPES as JSHAPES  # noqa: E402
 
 ZOO = ["tinyllama-1.1b", "qwen1.5-0.5b", "starcoder2-15b", "gemma3-4b",
-       "hubert-xlarge", "qwen2-vl-72b"]
+       "hubert-xlarge", "qwen2-vl-72b", "qwen2-moe-a2.7b", "grok-1-314b",
+       "jamba-v0.1-52b"]
 LOGIT_REL = 1e-4
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
 B, S, STEPS = 2, 12, 4
@@ -75,12 +81,14 @@ def test_config_matches_the_reference(arch):
 
 
 def test_registry():
-    assert list_archs() == list(PORTED)
+    assert list_archs() == list(PORTED) == jlist_archs()
     assert set(ZOO) | {"xlstm-1.3b"} == {get_config(a).name
                                          for a in list_archs()}
-    for arch in ("jamba-v0.1-52b", "qwen2-moe-a2.7b", "grok-1-314b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
+    for arch in list_archs():
+        assert get_config(arch) == bridge.model_config_from(
+            jget_config(arch))
+    with pytest.raises(ValueError, match="not an architecture"):
+        get_config("llama-7b")
 
 
 def _jcfg(arch, window=None):
@@ -134,12 +142,10 @@ def test_prefill_cache_and_greedy_decode_match(arch, window):
     last, tst = prefill_step(model, tbatch, cache_capacity=cap, device="cpu")
     _rel_close(last, jlog[:, -1])
     for i, st in enumerate(tst):
-        ref = _jax_layer_state(jst, jcfg, i)
-        w = tattn.layer_window(model.cfg, i)
-        assert st["k"].shape[1] == (w if w else cap)
-        for name in ("k", "v"):
-            np.testing.assert_allclose(st[name].numpy(),
-                                       np.asarray(ref[name]), **CACHE_TOL)
+        if "k" in st:
+            w = tattn.layer_window(model.cfg, i)
+            assert st["k"].shape[1] == (w if w else cap)
+    _states_close(tst, jst, jcfg)
     if jcfg.is_encoder:
         ok, _ = tspecs.applicable(model.cfg, INPUT_SHAPES["decode_32k"])
         assert not ok
@@ -155,10 +161,16 @@ def test_prefill_cache_and_greedy_decode_match(arch, window):
         ttok, tst = serve_step(model, tst, ttok, S + t, device="cpu")
         jtok = jnp.argmax(jd, -1).astype(jnp.int32)[:, None]
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    _states_close(tst, jst, jcfg)
+
+
+def _states_close(tst, jst, jcfg):
+    """Every layer's KV cache (k, v) or Mamba state (h, conv)."""
     for i, st in enumerate(tst):
         ref = _jax_layer_state(jst, jcfg, i)
-        for name in ("k", "v"):
-            np.testing.assert_allclose(st[name].numpy(),
+        assert set(st) == set(ref)
+        for name in ref:
+            np.testing.assert_allclose(st[name].float().numpy(),
                                        np.asarray(ref[name]), **CACHE_TOL)
 
 
