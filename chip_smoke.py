@@ -57,7 +57,27 @@ just before it and read just after:
   autograd of the plain version at the training shapes, small causal,
   window, softcap and GQA cases, both sides of the switch between its
   one-launch and two-launch paths (128 keys), hd 128 and a long causal
-  window, and a bit-identical rerun;
+  window, and the zoo's training shapes in f32 and bf16 (tinyllama,
+  gemma3's local and global layers at hd 256 and 2,048 tokens,
+  qwen2-moe), and a bit-identical rerun;
+* ``mlstm_grad``: the mLSTM backward kernel against torch autograd of
+  the chunkwise plain version at xlstm-1.3b's training shape (2 x 512,
+  dh 1024), the reduced config's and with a carried state, and a
+  bit-identical rerun;
+* ``zoo_train``: ``train_step`` in bf16 with remat at full width, 5
+  AdamW steps on one fixed batch each: tinyllama-1.1b (22 layers, 4 x
+  512), gemma3-4b (34 layers, 1 x 2048), xlstm-1.3b (48 layers, 2 x
+  512) and qwen2-moe-a2.7b (4 of its 24 layers: 24 would need about 230
+  GB), each loss must fall, each step must launch each backward kernel
+  once per such layer, and no plain version may run; ms a step,
+  tokens/s, peak memory, a profiled step's busy share, top kernels and
+  the backward kernels' shares;
+* ``zoo_train_crosscheck``: one f32 training step's loss and gradients
+  at full width and reduced depth, card vs a CPU copy of the same
+  weights (tinyllama and gemma3 2 layers, xlstm one 8-layer unit,
+  qwen2-moe 2 layers);
+* ``train_cli``: the training CLI's ``train_arch`` for all ten reduced
+  configs on the card, 5 steps each, finite losses;
 * ``train_path``: the paper's experiment pipeline (``run_experiment``
   with the default ``ExperimentConfig``: 11 experts of
   ``paper_library_specs(vocab=512)`` trained 300 MLM steps each, the
@@ -171,6 +191,44 @@ ATTN_GRAD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
     (1, 300, 300, 2, 1, 64, True, 64, 0.0),    # long T, causal window
     (1, 300, 140, 2, 2, 8, False, 3, 0.0),     # long T, rows with no key
 ]
+# the attention backward at the zoo's training shapes (zoo_train), in
+# bf16 and f32: (B, S, H, KV, hd, causal, window, label); bf16 is held
+# within one bf16 ulp of the plain f32 gradient rounded, plus
+# ATTN_GRAD_REL_TOL of the largest
+ZOO_ATTN_GRAD = [(4, 512, 32, 4, 64, True, 0, "tinyllama-1.1b"),
+                 (1, 2048, 8, 4, 256, True, 1024, "gemma3-4b local"),
+                 (1, 2048, 8, 4, 256, True, 0, "gemma3-4b global"),
+                 (4, 512, 16, 16, 128, True, 0, "qwen2-moe-a2.7b")]
+# the mLSTM backward against autograd of the chunkwise plain version:
+# (B, S, H, dh, carried state); xlstm-1.3b's training shape, the reduced
+# config's (d 256: dh 256) and a carried state (the kernel takes one; no
+# gradient flows into it)
+MLSTM_GRAD_CASES = [(2, 512, 4, 1024, False), (2, 128, 2, 256, False),
+                    (2, 96, 2, 32, True)]
+MLSTM_GRAD_REL_TOL = 1e-4
+# zoo_train: (arch, fields cut, batch, seq), full width in bf16, remat on,
+# TRAIN_STEPS AdamW steps (lr ZOO_TRAIN_LR) on one fixed batch; only
+# qwen2-moe is cut (24 layers would need about 230 GB: bf16 weights and
+# gradients and f32 moments)
+ZOO_TRAIN = [("tinyllama-1.1b", None, 4, 512),
+             ("gemma3-4b", None, 1, 2048),
+             ("xlstm-1.3b", None, 2, 512),
+             ("qwen2-moe-a2.7b", {"num_layers": 4}, 4, 512)]
+TRAIN_STEPS = 5
+# the reference CLI's lr: bf16 weights of ~1/sqrt(d) move at it
+ZOO_TRAIN_LR = 1e-3
+# zoo_train_crosscheck, f32 at full width: (arch, layers, batch, seq);
+# xlstm keeps one 8-layer unit (7 mLSTM, 1 sLSTM)
+ZOO_TRAIN_CROSS = [("tinyllama-1.1b", 2, 2, 128), ("gemma3-4b", 2, 1, 128),
+                   ("xlstm-1.3b", 8, 1, 128), ("qwen2-moe-a2.7b", 2, 2, 128)]
+TRAIN_CROSS_LOSS_RTOL, TRAIN_CROSS_GRAD_REL = 1e-4, 1e-3
+# a leaf whose card-vs-CPU gap passes TRAIN_CROSS_GRAD_REL is held
+# instead to ROUNDING_FACTOR times its own one-ulp sensitivity (the CPU
+# gradient's move when the first block's input moves by one ulp), where
+# that sensitivity is at least a tenth of TRAIN_CROSS_GRAD_REL: random
+# xLSTM layers amplify rounding past the gate (see zoo_train_crosscheck)
+# train_cli: the reference CLI's batch and sequence, TRAIN_STEPS steps
+CLI_TRAIN_BATCH, CLI_TRAIN_SEQ = 8, 128
 # the zoo's attention at its prefill shapes: (B, S, H, KV, hd, causal,
 # window, softcap, dtype); S past the window where there is one
 ZOO_ATTN_CASES = [
@@ -275,14 +333,28 @@ SOURCES = {
     "mlstm_scan": ("src/repro_torch/kernels/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan/kernel.py:36",
                    "mlstm_scan"),
+    # no Pallas counterpart: the gradient of the scan above, which the
+    # JAX package takes by XLA autodiff of _mlstm_cell_chunkwise
+    "mlstm_scan_bwd": ("src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
+                       "src/repro/models/ssm.py:254", "mlstm_bwd_"),
 }
 ROUTER_PATH = ("router_score", "router_cascade", "flash_attention")
-# kernels whose products run on the tensor cores (3xTF32)
-TENSOR_CORE = ("flash_attention", "flash_attention_bwd", "mlstm_scan")
+# kernels whose products run on the tensor cores (3xTF32; bf16 attention
+# in one or two TF32 passes): name -> the functions that must hold TF32
+# HMMA ("" every one).  The mLSTM backward's small launches (gates, den,
+# dS, the sums, the outputs) run on the CUDA cores in f32; its products
+# all run in mlstm_bwd_gemm.
+TENSOR_CORE = {"flash_attention": "", "flash_attention_bwd": "",
+               "mlstm_scan": "", "mlstm_scan_bwd": "mlstm_bwd_gemm"}
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s``: seconds since the script began."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -318,21 +390,27 @@ def device_phase(torch) -> dict:
 def sass_mma(build, lib) -> dict:
     """Per device function of the built library: how many tensor-core
     instructions (HMMA) its SASS holds, and which kinds, from
-    ``cuobjdump -sass``."""
+    ``cuobjdump -sass`` of each object file (all at once; one pass over
+    the whole library takes a minute)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib.path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    out, cur = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            cur = out.setdefault(line.split("Function :")[1].strip(),
-                                 {"hmma": 0, "kinds": []})
-        elif cur is not None and "HMMA" in line:
-            cur["hmma"] += 1
-            kind = line[line.index("HMMA"):].split()[0]
-            if kind not in cur["kinds"]:
-                cur["kinds"].append(kind)
+    objs = sorted(build.objects_dir(lib.path).glob("*.o")) or [lib.path]
+    procs = [subprocess.Popen([str(cuobjdump), "-sass", str(o)],
+                              stdout=subprocess.PIPE, text=True)
+             for o in objs]
+    out = {}
+    for proc in procs:
+        text, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"cuobjdump failed ({proc.args})")
+        cur = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                cur = out.setdefault(line.split("Function :")[1].strip(),
+                                     {"hmma": 0, "kinds": []})
+            elif cur is not None and "HMMA" in line:
+                cur["hmma"] += 1
+                kind = line[line.index("HMMA"):].split()[0]
+                if kind not in cur["kinds"]:
+                    cur["kinds"].append(kind)
     return out
 
 
@@ -354,7 +432,7 @@ def build_phase() -> None:
                   f"{fn} spills registers: {info}")
             if name in TENSOR_CORE:
                 mma = sass.get(fn, {"hmma": 0, "kinds": []})
-                check(mma["hmma"] > 0
+                check((mma["hmma"] > 0 or TENSOR_CORE[name] not in fn)
                       and all("TF32" in k for k in mma["kinds"]),
                       f"{fn}: no TF32 tensor-core instructions in its SASS "
                       f"({mma})")
@@ -1666,34 +1744,356 @@ def attention_grad_phase(torch) -> float:
     """The backward kernel's dQ, dK, dV against torch autograd of the
     plain version, at the training shapes, small causal, window, softcap
     and GQA cases, and both sides of the switch between its one-launch
-    and two-launch paths; a rerun must give bit-identical gradients.
-    Returns the largest max abs error."""
+    and two-launch paths; then at the zoo's training shapes in f32 and
+    bf16 (held against the plain version's f32 gradient of the same
+    values: bf16 within one bf16 ulp of it rounded, plus the f32
+    tolerance); a rerun must give bit-identical gradients.  Returns the
+    largest max abs error of the f32 cases."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     cases, worst = [], 0.0
-    for B, S, T, H, KV, hd, causal, window, softcap in ATTN_GRAD_CASES:
-        q, k, v, do = attn_grad_inputs(torch, B, S, T, H, KV, hd, S + hd)
+    zoo = [(B, S, S, H, KV, hd, causal, window, 0.0, dt, label)
+           for B, S, H, KV, hd, causal, window, label in ZOO_ATTN_GRAD
+           for dt in ("float32", "bfloat16")]
+    for B, S, T, H, KV, hd, causal, window, softcap, dt, label in (
+            [(*c, "float32", None) for c in ATTN_GRAD_CASES] + zoo):
+        q, k, v, do = (x.to(getattr(torch, dt)) for x in attn_grad_inputs(
+            torch, B, S, T, H, KV, hd, S + hd))
         masks = dict(causal=causal, window=window, softcap=softcap)
         _, lse = fa_ops._forward(q, k, v, causal, window, softcap, True)
         got = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
         again = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
-        want = fa_ops.attention_grad_plain(q, k, v, do, **masks)
+        want = fa_ops.attention_grad_plain(q.float(), k.float(), v.float(),
+                                           do.float(), **masks)
         torch.cuda.synchronize()
         case = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, **masks,
-                "kernel_launches": 1 if T <= fa_ops.BLOCK_KEYS else 2}
+                "dtype": dt, "config": label,
+                "kernel_launches": fa_ops.backward_launches(T, hd)}
         for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
-            e, scale = float((a - w).abs().max()), float(w.abs().max())
-            check(bool(torch.isfinite(a).all())
-                  and e <= ATTN_GRAD_REL_TOL * scale,
+            err = (a.float() - w).abs()
+            e, scale = float(err.max()), float(w.abs().max())
+            if dt == "float32":
+                ok = e <= ATTN_GRAD_REL_TOL * scale
+                worst = max(worst, e)
+            else:
+                ok = bool((err <= bf16_ulp(torch, w.bfloat16().float().abs())
+                           + ATTN_GRAD_REL_TOL * scale).all())
+            check(a.dtype == q.dtype and bool(torch.isfinite(a).all())
+                  and ok,
                   f"attention backward {case} {name}: max abs err {e}, "
                   f"largest {scale}")
             check(torch.equal(a, b), f"attention backward {case} {name}: "
                                      f"a rerun differs")
             case[name] = [e, scale]
-            worst = max(worst, e)
         cases.append(case)
+        del q, k, v, do, lse, got, again, want
+        torch.cuda.empty_cache()
     emit("attention_grad", tolerance_rel_to_max=ATTN_GRAD_REL_TOL,
+         bf16_tolerance="one bf16 ulp of the plain f32 gradient rounded, "
+                        "plus the f32 tolerance",
          bit_identical_rerun=True, max_abs_err=worst, cases=cases)
     return worst
+
+
+def mlstm_grad_phase(torch) -> float:
+    """The mLSTM backward kernel (``mlstm_chunkwise_bwd``, from the
+    forward kernel's chunk-start states) against torch autograd of the
+    chunkwise plain version on the card, per gradient within
+    MLSTM_GRAD_REL_TOL of its largest magnitude; a rerun must be
+    bit-identical.  Returns the largest max abs error."""
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops
+    cases, worst = [], 0.0
+    for B, S, H, dh, carried in MLSTM_GRAD_CASES:
+        q, k, v, i, f, st = mlstm_inputs(torch, B, S, H, dh, carried,
+                                         seed=dh)
+        g = torch.Generator(device="cuda").manual_seed(dh + 1)
+        dh_ = torch.randn(B, S, H, dh, device="cuda", generator=g)
+        h, _, states = ml_ops._launch(q, k, v, i, f, st, True)
+        got = ml_ops.mlstm_chunkwise_bwd(q, k, v, i, f, st, h, dh_, states)
+        again = ml_ops.mlstm_chunkwise_bwd(q, k, v, i, f, st, h, dh_, states)
+        want = ml_ops.mlstm_chunkwise_grad_plain(q, k, v, i, f, st, dh_)
+        torch.cuda.synchronize()
+        case = {"B": B, "S": S, "H": H, "dh": dh, "carried_state": carried}
+        for name, a, b, w in zip(("dq", "dk", "dv", "di", "df"), got, again,
+                                 want):
+            e, scale = float((a - w).abs().max()), float(w.abs().max())
+            check(bool(torch.isfinite(a).all())
+                  and e <= MLSTM_GRAD_REL_TOL * scale,
+                  f"mLSTM backward {case} {name}: max abs err {e}, largest "
+                  f"{scale}")
+            check(torch.equal(a, b), f"mLSTM backward {case} {name}: a "
+                                     f"rerun differs")
+            case[name] = [e, scale]
+            worst = max(worst, e)
+        cases.append(case)
+        del q, k, v, i, f, st, h, states, got, again, want
+        torch.cuda.empty_cache()
+    emit("mlstm_grad", tolerance_rel_to_max=MLSTM_GRAD_REL_TOL,
+         bit_identical_rerun=True, max_abs_err=worst, cases=cases)
+    return worst
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the plain versions (attention, its gradient,
+    the chunkwise mLSTM and its gradient) while active: a dict name ->
+    calls.  The wrappers reach them through their modules, so the
+    counters see every call."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops
+    names = [(fa_ops, "attention_plain"), (fa_ops, "attention_grad_plain"),
+             (ml_ops, "mlstm_chunkwise_plain"),
+             (ml_ops, "mlstm_chunkwise_grad_plain")]
+    calls = {n: 0 for _, n in names}
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+
+    def counted(n, fn):
+        def call(*args, **kwargs):
+            calls[n] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for mod, n, fn in saved:
+        setattr(mod, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def zoo_train_one(torch, arch, cut, B, S, seed) -> dict:
+    """TRAIN_STEPS bf16 ``train_step`` calls (remat on) of one config at
+    full width on one fixed batch of tokens, the last under the profiler
+    (its busy share is taken against steps 2 to TRAIN_STEPS - 1).
+    The loss must fall; each step must launch the attention backward
+    (and for xlstm the mLSTM backward) once per such layer, and the
+    forward kernels twice in the full units (remat runs their forward
+    again) and once in the remainder layers (gemma3's last 4)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.steps import PerfKnobs, train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
+    pat = cfg.layer_pattern
+    kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+    n_attn, n_mlstm = kinds.count("attn"), kinds.count("mlstm")
+    units = cfg.num_layers // len(pat) * len(pat)     # the remat'd layers
+    fwd = {k: kinds.count(k) + kinds[:units].count(k)
+           for k in ("attn", "mlstm")}
+    t0 = time.perf_counter()
+    model = model_lib.init_model(cfg, seed=seed, device="cuda")
+    opt = adamw_init(model)
+    batch = {"tokens": zoo_tokens(torch, cfg, B, S, seed)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    knobs = PerfKnobs(remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step = [], [], []
+    match = {"attention_bwd": "flash_attention_bwd",
+             "attention_fwd": "flash_attention_kernel",
+             "mlstm_bwd": SOURCES["mlstm_scan_bwd"][2], "mlstm_fwd": "mlstm_scan"}
+    prof = None
+    for n in range(TRAIN_STEPS):
+        def step():
+            losses.append(float(train_step(model, opt, batch, knobs=knobs,
+                                           lr=ZOO_TRAIN_LR)))
+        launches.reset_launch_counts()
+        if n + 1 < TRAIN_STEPS:
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        else:   # the last step under the profiler, against steps 2 on
+            prof = device_profile(torch, step,
+                                  sum(step_s[1:]) / len(step_s[1:]) * 1e3,
+                                  top=10, match=match, host=False)
+        per_step.append(launches.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": fwd["attn"], "flash_attention_bwd": n_attn,
+            "mlstm_scan": fwd["mlstm"], "mlstm_scan_bwd": n_mlstm}
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{arch}: the loss did not fall over {TRAIN_STEPS} steps: "
+          f"{losses}")
+    for counts in per_step:
+        check(all(counts[n] == w for n, w in want.items())
+              and counts["flash_attention_bwd"] + counts[
+                  "mlstm_scan_bwd"] > 0,
+              f"{arch}: launches a step {counts}, want {want}")
+    ms = sum(step_s[1:]) / len(step_s[1:]) * 1e3  # step 1 warms up
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "layers_in_config": full_layers, "cut": cut or None,
+           "params": model_lib.count_params(model), "dtype": cfg.dtype,
+           "batch": B, "seq": S, "remat": True, "lr": ZOO_TRAIN_LR,
+           "setup_s": setup_s, "losses": losses,
+           "ms_per_step": ms, "first_step_ms": step_s[0] * 1e3,
+           "tokens_per_s": B * S / (ms / 1e3), "peak_memory_bytes": peak,
+           "launches_per_step": per_step[-1],
+           "attention_layers": n_attn, "mlstm_layers": n_mlstm,
+           "profiled_step": prof}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train_phase(torch) -> dict:
+    """Each training config of ZOO_TRAIN at full width in bf16, one at a
+    time; no plain version may run (the plain calls are counted).
+    Returns the launches of each kernel over the phase."""
+    runs, total = [], {}
+    with plain_calls() as plain:
+        for i, (arch, cut, B, S) in enumerate(ZOO_TRAIN):
+            r = zoo_train_one(torch, arch, cut, B, S, seed=20 + i)
+            runs.append(r)
+            for n, c in r["launches_per_step"].items():
+                total[n] = total.get(n, 0) + c * TRAIN_STEPS
+    check(not any(plain.values()), f"zoo_train: plain versions ran on the "
+                                   f"card: {plain}")
+    emit("zoo_train", steps=TRAIN_STEPS, plain_calls=plain, runs=runs,
+         launches=total,
+         method="ms_per_step: host clock around each train_step ending in "
+                "a sync, mean of steps 2-4; peak_memory_bytes: "
+                "torch.cuda.max_memory_allocated over the 5 steps; "
+                "profiled_step: step 5 under the profiler, the card's "
+                "activity alone (busy_share = its device time over "
+                "ms_per_step)")
+    return total
+
+
+def train_cross_grads(torch, model, tokens, jitter=False):
+    """(loss, {leaf: gradient}, the MoE layers' routes) of one training
+    step's ``lm_loss`` with remat; with ``jitter`` the first block's
+    input moves by one ulp (``ulp_jitter``), its gradient passing
+    through to the embedding unchanged."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adamw import grads_of
+
+    def moved(block, args):
+        x = args[0]
+        # x + (j - x) is j exactly (the difference of neighbours is exact)
+        return (x + (ulp_jitter(torch, x.detach()) - x.detach()),) + args[1:]
+
+    model.zero_grad(set_to_none=True)
+    hook = (model.layers[0].register_forward_pre_hook(moved)
+            if jitter else None)
+    try:
+        with moe_inputs(model) as seen:
+            loss, _ = model_lib.lm_loss(model, {"tokens": tokens},
+                                        remat=True)
+            loss.backward()
+    finally:
+        if hook is not None:
+            hook.remove()
+    n_moe = sum(b.use_moe for b in model.layers)
+    grads = {n: g.detach().cpu().clone()
+             for n, g in grads_of(model).items()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, moe_routes(torch, model,
+                                                  seen[:n_moe])
+
+
+def zoo_train_crosscheck_phase(torch) -> dict:
+    """f32 at full width, reduced depth: the loss and the gradients of
+    one training step (``lm_loss`` with remat, then backward) on the
+    card (the kernels) and on a CPU copy of the same weights (the plain
+    versions).  Losses to TRAIN_CROSS_LOSS_RTOL, every leaf's gradient
+    within TRAIN_CROSS_GRAD_REL of its largest magnitude; a leaf past it
+    is held to ROUNDING_FACTOR times its one-ulp sensitivity on the CPU
+    where that sensitivity is at least TRAIN_CROSS_GRAD_REL / 10 (the
+    leaves and their sensitivities are reported).  For MoE the expert
+    sets are compared token by token first: a token that chose other
+    experts on the card is excused only at a near tie, and then the
+    gradients downstream of it differ and are reported, not held."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    rows = []
+    for arch, layers, B, S in ZOO_TRAIN_CROSS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        t0 = time.perf_counter()
+        gpu = model_lib.init_model(cfg, seed=31, device="cuda")
+        cpu = copy.deepcopy(gpu).cpu()
+        tokens = zoo_tokens(torch, cfg, B, S, seed=32)
+        t1 = time.perf_counter()
+        loss_g, grads_g, routes_g = train_cross_grads(torch, gpu, tokens)
+        t2 = time.perf_counter()
+        loss_c, grads_c, routes_c = train_cross_grads(torch, cpu,
+                                                      tokens.cpu())
+        t3 = time.perf_counter()
+        rel = abs(loss_g - loss_c) / abs(loss_c)
+        scale = {n: max(float(g.abs().max()), 1e-30)
+                 for n, g in grads_c.items()}
+        g_err = {n: float((grads_g[n] - g).abs().max()) / scale[n]
+                 for n, g in grads_c.items()}
+        worst = max(g_err, key=g_err.get)
+        row = {"arch": arch, "layers": layers, "batch": B, "seq": S,
+               "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+               "worst_grad_rel_err": g_err[worst], "worst_grad_leaf": worst,
+               "card_s": t2 - t1, "cpu_s": t3 - t2}
+        routes_differ = False
+        if cfg.moe is not None:
+            diffs = expert_set_diffs(torch, cfg, routes_g, routes_c)
+            for d in diffs:
+                check(d["differ"] == d["near_tie"],
+                      f"{arch}: layer {d['layer']}: {d['differ']} tokens "
+                      f"chose other experts on the card, {d['near_tie']} "
+                      f"at a near tie")
+                routes_differ |= d["differ"] > 0
+            row["expert_set_diffs"] = diffs
+        past = [n for n, e in g_err.items() if e > TRAIN_CROSS_GRAD_REL]
+        if past and not routes_differ:
+            _, grads_j, _ = train_cross_grads(torch, cpu, tokens.cpu(),
+                                              jitter=True)
+            sens = {n: float((grads_j[n] - grads_c[n]).abs().max())
+                    / scale[n] for n in past}
+            row["one_ulp_sensitivity"] = sens
+            row["past_gate"] = {n: g_err[n] for n in past}
+            for n in past:
+                check(sens[n] >= TRAIN_CROSS_GRAD_REL / 10
+                      and g_err[n] <= ROUNDING_FACTOR * sens[n],
+                      f"{arch}: first-step gradient of {n} rel err "
+                      f"{g_err[n]}, its one-ulp sensitivity {sens[n]}")
+        row["gradients_held"] = not routes_differ
+        row["setup_s"] = t1 - t0
+        check(rel <= TRAIN_CROSS_LOSS_RTOL,
+              f"{arch}: training loss card {loss_g} vs CPU {loss_c}")
+        rows.append(row)
+        del gpu, cpu, grads_g, grads_c
+        torch.cuda.empty_cache()
+    out = {"dtype": "f32", "runs": rows,
+           "tolerances": {"loss_rtol": TRAIN_CROSS_LOSS_RTOL,
+                          "grad_rel_to_max": TRAIN_CROSS_GRAD_REL,
+                          "past_it_times_one_ulp_sensitivity":
+                              ROUNDING_FACTOR,
+                          "route_gap": ROUTE_GAP}}
+    emit("zoo_train_crosscheck", **out)
+    return out
+
+
+def train_cli_phase(torch) -> dict:
+    """``python -m repro_torch.launch.train --arch <id>``'s
+    ``train_arch`` for every config's reduced variant on the card,
+    TRAIN_STEPS steps at the CLI's batch and sequence: finite losses."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.train import train_arch
+    runs = []
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        losses = train_arch(arch, TRAIN_STEPS, CLI_TRAIN_BATCH,
+                            CLI_TRAIN_SEQ, device="cuda", verbose=False)
+        check(all(np.isfinite(losses)), f"train_cli {arch}: {losses}")
+        runs.append({"arch": arch, "losses": losses,
+                     "seconds": time.perf_counter() - t0})
+    emit("train_cli", steps=TRAIN_STEPS, batch=CLI_TRAIN_BATCH,
+         seq=CLI_TRAIN_SEQ, runs=runs)
+    return {"runs": runs}
 
 
 def timed_expert_steps(torch, spec, corpus, steps=20, warmup=3) -> dict:
@@ -2397,7 +2797,8 @@ def serve_cli_phase(torch, eps: float) -> dict:
 
 # -------------------------------------------------------------- phase 5
 
-def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
+def device_profile(torch, fn, wall_ms, top=8, match=None,
+                   host=True) -> dict:
     """Kernel time on the card for one call of ``fn`` under the
     profiler, with the top kernels, and for each ``match`` entry (name:
     a substring, or a tuple of them) the time of the kernels whose names
@@ -2407,11 +2808,13 @@ def device_profile(torch, fn, wall_ms, top=8, match=None) -> dict:
     the profiler's own start-up and is reported only as such.  Where the
     trace shows no device time at all (the profiler could not trace the
     card), every device figure is None: not measured, rather than an
-    idle card."""
+    idle card.  ``host=False`` traces the card alone (no CPU-side op
+    events): for a step of some 300,000 launches (xlstm's training
+    step) the host events would cost minutes to collect and add up."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     prof_wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2448,14 +2851,15 @@ def events_ms(torch, fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_kernels(torch, fn, iters=50) -> dict:
+def profiled_kernels(torch, fn, iters=50, host=True) -> dict:
     """Device time per call of each CUDA kernel that ``fn`` runs, over
-    ``iters`` calls under the profiler."""
+    ``iters`` calls under the profiler (``host=False``: the card's
+    activity alone, as ``device_profile``)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -2469,17 +2873,17 @@ def profiled_kernels(torch, fn, iters=50) -> dict:
     return out
 
 
-def profiled_ms(torch, fn, kernel: str, iters=50):
+def profiled_ms(torch, fn, kernel: str, iters=50, host=True):
     """Device time per call of the CUDA kernels whose names hold
     ``kernel`` (all of a wrapper's launches), from the profiler's trace;
     None if the trace shows no device time for them."""
-    ms = sum(t for n, t in profiled_kernels(torch, fn, iters).items()
+    ms = sum(t for n, t in profiled_kernels(torch, fn, iters, host).items()
              if kernel in n)
     return ms or None
 
 
 def times_phase(torch, launches_per_run: dict, err: dict,
-                bwd_per_step: int) -> list:
+                bwd_per_step: int, zoo_per_step: dict) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mlstm_scan import ops as ml_ops
@@ -2509,6 +2913,28 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                       + 2 * B * H * dh + 2 * B * S * H + 2 * B * H),
                  # per row and chunk: q k^T and (W*S) v, q C and k^T v
                  B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh),
+                 {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}, None))
+    # the mLSTM backward at xlstm-1.3b's training shape (2 x 512): from the
+    # forward kernel's chunk-start states; no library call computes it
+    B, S = 2, 512
+    nc = S // L
+    q, k, v, i, f, st = mlstm_inputs(torch, B, S, H, dh, False, seed=3)
+    dh_ = torch.randn(B, S, H, dh, device="cuda")
+    h, _, states = ml_ops._launch(q, k, v, i, f, st, True)
+    bwd_args = (q, k, v, i, f, st)     # bound now: i is reused below
+    rows.append(("mlstm_scan_bwd",
+                 lambda a=bwd_args, h=h, d=dh_, s=states:
+                 ml_ops.mlstm_chunkwise_bwd(*a, h, d, s),
+                 lambda a=bwd_args, d=dh_:
+                 ml_ops.mlstm_chunkwise_grad_plain(*a, d), None,
+                 # q, k, v, h, dh read and dq, dk, dv written; i, f read
+                 # and di, df written; the chunk-start states read; m0
+                 4 * (8 * B * S * H * dh + 4 * B * S * H
+                      + B * H * nc * (dh * dh + dh) + B * H),
+                 # per row and chunk: C dnum, G v, G^T k and the
+                 # recurrence's (aq)^T dnum (2 L dh^2 each); q k^T,
+                 # dnum v^T, dS k, dS^T q, P^T dnum (2 L^2 dh each)
+                 B * H * nc * (8 * L * dh * dh + 10 * L * L * dh),
                  {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}, None))
     extra = []
     # the main path's shape first, then hd 40, 8 heads, and the batch
@@ -2583,6 +3009,8 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                 nbytes, 3 * flops, TF32_TC_FLOPS_PER_S)
         if name == "flash_attention_bwd":
             entry["launches_per_expert_step"] = bwd_per_step
+        if name == "mlstm_scan_bwd":
+            entry["launches_per_xlstm_step"] = zoo_per_step[name]
         if libcall is not None:
             # the library call's own kernels, device time and error
             lib_k = profiled_kernels(torch, libcall)
@@ -2593,6 +3021,7 @@ def times_phase(torch, launches_per_run: dict, err: dict,
         (kernels if n < len(rows) else extra_out).append(entry)
     emit("times", kernels=kernels, extra_shapes=extra_out,
          zoo_prefill_attention=zoo_attention_times(torch, F, fa_ops),
+         zoo_train_attention_bwd=zoo_attention_bwd_times(torch, F, fa_ops),
          launch_floor=launch_floor(torch, rs_ops.decision_plan(32, d, hh)),
          router_buckets=router_buckets(
              torch, rs_ops, rc_ops, d, hh, M, n_c),
@@ -2691,6 +3120,68 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
     return out
 
 
+def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
+    """The attention backward at the zoo's bf16 training shapes
+    (ZOO_ATTN_GRAD): CUDA events and profiler device time beside the
+    plain version's autograd, SDPA's backward on the same bf16 inputs
+    and mask (K/V repeated to H heads and transposed beforehand, the
+    forward outside the timing), and the bound: bytes (q, k, v, dO read,
+    dQ, dK, dV written in bf16; lse read in f32) over 3.35 TB/s or the
+    five products' 10 hd operations a head for each pair the masks
+    leave over the bf16 tensor cores' 989 TFLOP/s, the larger."""
+    out = []
+    for B, S, H, KV, hd, causal, window, label in ZOO_ATTN_GRAD:
+        q, k, v, do = (x.bfloat16() for x in attn_grad_inputs(
+            torch, B, S, S, H, KV, hd, S + hd))
+        masks = dict(causal=causal, window=window, softcap=0.0)
+        _, lse = fa_ops._forward(q, k, v, causal, window, 0.0, True)
+        qh, kh, vh = (a.repeat_interleave(H // a.shape[2], dim=2)
+                      .transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        mask = None
+        if window > 0:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :]
+                                                  > i[:, None] - window)
+        with torch.enable_grad():
+            oh = F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
+        doh = do.transpose(1, 2).contiguous()
+
+        def kern(q=q, k=k, v=v, lse=lse, do=do, masks=masks):
+            return fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
+
+        def plain(q=q, k=k, v=v, do=do, masks=masks):
+            return fa_ops.attention_grad_plain(q, k, v, do, **masks)
+
+        def sdpa(oh=oh, qh=qh, kh=kh, vh=vh, doh=doh):
+            return torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                       retain_graph=True)
+
+        nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * KV * hd) \
+            + 4 * B * H * S
+        flops = 10 * B * H * hd * attention_pairs(S, causal, window)
+        bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
+        lib_k = profiled_kernels(torch, sdpa, iters=5, host=False)
+        out.append({
+            "config": label, "dtype": "bfloat16",
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                      "causal": causal, "window": window},
+            "kernel_launches": fa_ops.backward_launches(S, hd),
+            "ms": events_ms(torch, kern, iters=10, warmup=2),
+            "device_ms": profiled_ms(torch, kern, SOURCES[
+                "flash_attention_bwd"][2], iters=5, host=False),
+            "plain_ms": events_ms(torch, plain, iters=2, warmup=1),
+            "library_ms": events_ms(torch, sdpa, iters=10, warmup=2),
+            "library_device_ms": sum(lib_k.values()) or None,
+            "library_kernel": (max(lib_k, key=lib_k.get)[:80]
+                               if lib_k else None),
+            "bound_ms": bms, "bound_by": by})
+        del q, k, v, do, lse, qh, kh, vh, oh, doh, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 def head_cost(B, d, hh, M, n_c, cascade) -> tuple[int, int]:
     """(bytes, f32 operations) of one router-head call: weights, rows
     and outputs moved once; both layers' products and the constraint
@@ -2771,6 +3262,10 @@ def main() -> int:
     zoo_serve_phase(torch)
     zoo_crosscheck_phase(torch)
     err["flash_attention_bwd"] = attention_grad_phase(torch)
+    err["mlstm_scan_bwd"] = mlstm_grad_phase(torch)
+    zoo_launches = zoo_train_phase(torch)
+    zoo_train_crosscheck_phase(torch)
+    train_cli_phase(torch)
     train = train_path_phase(torch)
     adapt_path_phase(torch)
     tiers = cache_tiers_phase(torch)
@@ -2780,8 +3275,12 @@ def main() -> int:
     path_launches["mlstm_scan"] = xlstm["launches"]["mlstm_scan"]
     path_launches["flash_attention_bwd"] = (
         train["launches"]["flash_attention_bwd"])
+    # the mLSTM backward's path is zoo_train (xlstm-1.3b's steps)
+    path_launches["mlstm_scan_bwd"] = zoo_launches["mlstm_scan_bwd"]
     kernels = times_phase(torch, path_launches, err,
-                          train["attention_bwd_per_expert_step"])
+                          train["attention_bwd_per_expert_step"],
+                          {"mlstm_scan_bwd": zoo_launches["mlstm_scan_bwd"]
+                           // TRAIN_STEPS})
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items() if k != "shape"} for e in kernels]}),
         flush=True)

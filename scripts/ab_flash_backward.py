@@ -6,7 +6,9 @@ one process on one card.
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu`` of this
 checkout and of ``OTHER_TREE`` (for example the parent commit, unpacked
-with ``git archive``) with the flags of ``kernels/build.py``, loads both
+with ``git archive``) with the flags of ``kernels/build.py`` (and, where
+the tree has them, the parts of ``flash_attention_bwd_part.cu`` with its
+``PARTS`` defines, all nvcc processes side by side), loads both
 with ctypes, and times them at the training shapes (B, H, S = T, hd) =
 (16, 8, 128, 32), (16, 4, 128, 40) and (32, 4, 128, 32), non-causal,
 in turns: other, this, this, other, for ``--rounds`` rounds.  Each turn
@@ -38,18 +40,33 @@ KERNEL = "flash_attention_bwd"   # in every device function's name
 
 def build(tree: Path, out: Path) -> ctypes.CDLL:
     from repro_torch.kernels import build as kbuild
-    src = tree / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
-    subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-shared",
-                    "-o", str(out), str(src)], check=True,
-                   capture_output=True, text=True, timeout=900)
+    csrc = tree / "src/repro_torch/kernels/csrc"
+    src = csrc / "flash_attention_bwd.cu"
+    units = [(src, ())]
+    if (csrc / "flash_attention_bwd_part.cu").exists():
+        units += [(csrc / "flash_attention_bwd_part.cu", d)
+                  for d in kbuild.PARTS["flash_attention_bwd_part.cu"]]
+    procs = [subprocess.Popen(
+        [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, *d, "-c", str(u), "-o",
+         f"{out}.{i}.o"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i, (u, d) in enumerate(units)]
+    for p in procs:
+        if p.wait(timeout=900):
+            raise RuntimeError(p.stdout.read().decode())
+    subprocess.run([kbuild.nvcc_path(), *kbuild.ARCH, "-shared", "-o",
+                    str(out), *(f"{out}.{i}.o" for i in range(len(units)))],
+                   check=True, capture_output=True, text=True, timeout=900)
     lib = ctypes.CDLL(str(out))
     fn = lib.tryage_flash_attention_bwd
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    text = src.read_text()
     # a tree with two launches at every shape takes two (B, H, S)
-    # workspaces; this design one (B, H, S, 2), read past 128 keys only
-    lib.two_workspaces = "float* dsum, float* lse_b" in src.read_text()
+    # workspaces; later designs one (B, H, S, 2), read past 128 keys
+    # only; since bf16 came in, an int says the inputs' type
+    lib.two_workspaces = "float* dsum, float* lse_b" in text
+    lib.dtype_flag = "int bf16, void* stream" in text
     fn.argtypes = ([P] * 5 + [P] * (5 if lib.two_workspaces else 4)
-                   + [I] * 8 + [F] * 2 + [P])
+                   + [I] * 8 + [F] * 2 + [I] * lib.dtype_flag + [P])
     fn.restype = ctypes.c_int
     return lib
 
@@ -115,7 +132,7 @@ def main() -> int:
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), *ws, dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), B, S, S, H, H, hd, 0, 0, 0.0, scale,
-                    stream)
+                    *([0] if lib.dtype_flag else []), stream)
                 if err:
                     raise RuntimeError(f"{name}: launch error {err}")
 

@@ -67,7 +67,7 @@ def expert_step(model: Model, opt: OptState, batch: dict, *, lr,
     and ``adamw_update`` (in place).  ``batch`` holds tensors on the
     model's device.  Returns (new optimizer state, the step's loss)."""
     model.zero_grad(set_to_none=True)
-    loss, _ = lm_loss(model, batch)
+    loss, _ = lm_loss(model, batch, remat=False)
     loss.backward()
     _, opt = adamw_update(model, grads_of(model), opt, lr=lr,
                           weight_decay=weight_decay)

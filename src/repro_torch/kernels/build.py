@@ -2,7 +2,8 @@
 
 Every kernel is CUDA C++ for ``sm_90a`` under ``kernels/csrc/`` with a
 plain C interface.  At first use the sources are compiled with ``nvcc``
-(one process per source, all started together), linked into one shared
+(one process per source, or per part of a source in ``PARTS``, all
+started together), linked into one shared
 library under ``build/torch_kernels/`` at the repository root, and
 loaded with ``ctypes``.  The library's file name carries a digest of
 the sources and flags, so an edited kernel is rebuilt and a stale
@@ -28,9 +29,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
            "flash_attention_bf16.cu", "flash_attention_bwd.cu",
-           "mlstm_scan.cu", "launch_floor.cu")
+           "flash_attention_bwd_part.cu", "mlstm_scan.cu",
+           "mlstm_scan_bwd.cu", "launch_floor.cu")
+# sources compiled once per part, each with its own defines: the
+# attention backward's 128 kernel instances (f32 and bf16, hd / 8 from 1
+# to 32) in eight parts of 16, so that nvcc's time spreads over the cores
+PARTS = {"flash_attention_bwd_part.cu": [
+    (f"-DTRYAGE_BWD_BF16={bf16}", f"-DTRYAGE_BWD_LO={lo}")
+    for bf16 in (0, 1) for lo in (1, 9, 17, 25)]}
 HEADERS = ("common.cuh", "mma_tf32.cuh", "router_head.cuh",
-           "flash_attention.cuh")
+           "flash_attention.cuh", "flash_attention_bwd.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -50,12 +58,16 @@ SIGNATURES = {
     # | softcap scale | bf16 (0: f32 inputs) | stream
     "tryage_flash_attention": [_P] * 3 + [_P] * 2 + [_I] * 8 + [_F] * 2
     + [_I] + [_P],
-    # q k v dO lse | rows (workspace, null up to 128 keys) dq dk dv
-    # | B S T H KV hd causal window | softcap scale | stream
+    # q k v dO lse | rows (workspace, null on one launch) dq dk dv
+    # | B S T H KV hd causal window | softcap scale | bf16 | stream
     "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 4 + [_I] * 8
-    + [_F] * 2 + [_P],
-    # q k v i f C0 n0 m0 | h C1 n1 m1 work | B S H dh chunk | scale | stream
-    "tryage_mlstm_scan": [_P] * 8 + [_P] * 5 + [_I] * 5 + [_F] + [_P],
+    + [_F] * 2 + [_I] + [_P],
+    # q k v i f C0 n0 m0 | h C1 n1 m1 work Cst nst (null: not written)
+    # | B S H dh chunk | scale | stream
+    "tryage_mlstm_scan": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_F] + [_P],
+    # q k v i f m0 Cst nst h dh | dq dk dv di df work | B S H dh chunk
+    # | scale | stream
+    "tryage_mlstm_scan_bwd": [_P] * 10 + [_P] * 6 + [_I] * 5 + [_F] + [_P],
     # grid threads | stream: an empty kernel, the launch floor
     "tryage_launch_floor": [_I] * 2 + [_P],
 }
@@ -63,6 +75,8 @@ SIGNATURES = {
 SIZES = {
     # B S H chunk -> floats of workspace tryage_mlstm_scan needs
     "tryage_mlstm_scan_workspace": [_I] * 4,
+    # B S H dh chunk -> floats of workspace tryage_mlstm_scan_bwd needs
+    "tryage_mlstm_scan_bwd_workspace": [_I] * 5,
 }
 
 
@@ -101,10 +115,11 @@ def refuse_grad(name: str, *tensors) -> None:
     """Raise when autograd would need a gradient through kernel ``name``.
 
     The kernels write their outputs through ctypes into fresh buffers
-    that carry no ``grad_fn``; only attention has a backward kernel
-    (``flash_attention``'s ``autograd.Function``).  For the others a
-    loss behind one would get no gradient and nothing would say so.  The
-    plain versions (CPU tensors) stay differentiable."""
+    that carry no ``grad_fn``; attention and the mLSTM scan have
+    backward kernels (their wrappers' ``autograd.Function``), and only
+    the router heads use this.  A loss behind one would get no gradient
+    and nothing would say so.  The plain versions (CPU tensors) stay
+    differentiable."""
     import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -144,10 +159,16 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def objects_dir(so: Path) -> Path:
+    """Where the build keeps the library's object files."""
+    return so.with_name(so.stem + "_objects")
 
 
 def _load() -> KernelLibrary:
@@ -179,17 +200,20 @@ def _build(so: Path, log: Path) -> float:
     try:
         procs = []
         for src in SOURCES:
-            obj = tmp / (src + ".o")
-            procs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            for i, defines in enumerate(PARTS.get(src, [()])):
+                obj = tmp / f"{src}.{i}.o"
+                procs.append((" ".join((src, *defines)), obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *defines, "-c", str(CSRC / src),
+                     "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
         outputs = []
         for src, _, proc in procs:
             text, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {src}:\n{text}")
-            outputs.append(f"== {src}\n{text}")
+            outputs.append(f"== {src} (done at "
+                           f"{time.perf_counter() - t0:.1f} s)\n{text}")
         tmp_so = tmp / so.name
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(tmp_so),
@@ -198,6 +222,13 @@ def _build(so: Path, log: Path) -> float:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         log.write_text("".join(outputs))
+        # the objects stay beside the library (one per source or part),
+        # so that a disassembly can take them in parallel
+        objs = objects_dir(so)
+        shutil.rmtree(objs, ignore_errors=True)
+        objs.mkdir()
+        for _, obj, _ in procs:
+            os.replace(obj, objs / obj.name)
         os.replace(tmp_so, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -61,6 +61,10 @@
 //    accumulator per 32-wide slice to its sum, launch 2's split over
 //    k leaves each warp 3 dh / 64 chained steps.
 //
+// With non-null Cst (B, H, S / L, dh, dh) and nst (B, H, S / L, dh),
+// launch 2 also writes C and n as they stand at each chunk's start, for
+// the backward (mlstm_scan_bwd.cu); serving passes null.
+//
 // The C entry point launches both, so the wrapper counts one launch.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -279,7 +283,8 @@ mlstm_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ C0,
                   const float* __restrict__ n0, const float* __restrict__ work,
                   float* __restrict__ h, float* __restrict__ C1,
-                  float* __restrict__ n1, int S, int H, int dh, int L,
+                  float* __restrict__ n1, float* __restrict__ Cst,
+                  float* __restrict__ nst, int S, int H, int dh, int L,
                   float scale, size_t gate_off) {
   extern __shared__ __align__(16) float smem[];
   const int rows = (dh + kKS - 1) / kKS * kKS;
@@ -382,6 +387,18 @@ mlstm_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
       tryage::cp_async_commit();
 
       if (j == 0) {  // split v once for the chunk, in place
+        if (Cst != nullptr) {  // C and n at the chunk's start, for the backward
+          float* cz = Cst + ((size_t)bh * nc + c) * dh * dh;
+          for (int i = tid; i < dh * (kCols / 4); i += kThreads2) {
+            const int r = i / (kCols / 4), cc = (i % (kCols / 4)) * 4;
+            if (col0 + cc < dh)
+              *reinterpret_cast<float4*>(cz + (size_t)r * dh + col0 + cc) =
+                  *reinterpret_cast<const float4*>(c_s + cidx(r, cc));
+          }
+          if (blockIdx.y == 0)
+            for (int d = tid; d < dh; d += kThreads2)
+              nst[((size_t)bh * nc + c) * dh + d] = n_s[d];
+        }
 #pragma unroll
         for (int i = 0; i < kL / 4; ++i) wv[i] = g_s[kW + t + 4 * i];
         for (int i = tid; i < kL * kCols; i += kThreads2) {
@@ -560,9 +577,9 @@ extern "C" int tryage_mlstm_scan(const float* q, const float* k, const float* v,
                                  const float* ig, const float* fg,
                                  const float* C0, const float* n0,
                                  const float* m0, float* h, float* C1,
-                                 float* n1, float* m1, float* work, int B,
-                                 int S, int H, int dh, int L, float scale,
-                                 void* stream) {
+                                 float* n1, float* m1, float* work,
+                                 float* Cst, float* nst, int B, int S, int H,
+                                 int dh, int L, float scale, void* stream) {
   if (B <= 0 || H <= 0 || dh <= 0) return 0;
   if (S <= 0 || L <= 0 || L > kL || S % L || dh % 8)
     return (int)cudaErrorInvalidValue;
@@ -580,7 +597,8 @@ extern "C" int tryage_mlstm_scan(const float* q, const float* k, const float* v,
   err = tryage::allow_smem(mlstm_scan_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   mlstm_scan_kernel<<<dim3(B * H, (dh + kCols - 1) / kCols), kThreads2, smem, st>>>(
-      q, k, v, C0, n0, work, h, C1, n1, S, H, dh, L, scale, gate_off);
+      q, k, v, C0, n0, work, h, C1, n1, Cst, nst, S, H, dh, L, scale,
+      gate_off);
   return (int)cudaGetLastError();
 }
 

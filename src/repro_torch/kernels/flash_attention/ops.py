@@ -12,9 +12,11 @@ nor the K/V repeat of the JAX wrapper touches device memory.
 
 ``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
 which has no Pallas counterpart: the JAX package differentiates its XLA
-attention; all five products in 3xTF32, one launch up to ``BLOCK_KEYS``
-keys, two above); ``flash_attention`` runs forward and backward kernels
-as one ``torch.autograd.Function`` when an input requires grad.
+attention; f32 or bf16, head_dim up to 256, the five products in 3xTF32
+for f32 and in one or two TF32 passes for bf16, one launch up to
+``block_keys(hd)`` keys, two above); ``flash_attention`` runs forward
+and backward kernels as one ``torch.autograd.Function`` when an input
+requires grad.
 
 Bound on the H100: at the router's shapes the f32 operations (4*S*T*hd
 per head, about 4 us for a router layer at B=32 on the CUDA cores); at
@@ -24,8 +26,8 @@ which keeps f32 accuracy; for bf16 inputs (exact in TF32) one pass for
 q k^T and two for P V (P stays f32).  The online softmax is in
 registers and K/V tiles are staged in shared memory with cp.async, so
 each block reads K and V once.  q, k, v are f32 or bf16 (all one type;
-the output takes it), head_dim a multiple of 8 up to 256.  The backward
-kernel takes f32 up to head_dim 128 and refuses the rest.
+the output takes it), head_dim a multiple of 8 up to 256; the backward
+takes the same.
 """
 
 from __future__ import annotations
@@ -38,14 +40,21 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.3819763e38  # the Pallas kernel's mask fill
 MAX_HEAD_DIM = 256
-# the backward kernel (csrc/flash_attention_bwd.cu) is f32 up to hd 128;
-# bf16 and wider heads are the zoo's training (ROADMAP.md)
-MAX_HEAD_DIM_BWD = 128
 DTYPES = (torch.float32, torch.bfloat16)
-# keys of one block of the backward kernel (csrc/flash_attention_bwd.cu
-# kBlockKeys): up to this many keys it runs as one launch; above, a
-# first launch writes each row's sums to a (B, H, S, 2) workspace
-BLOCK_KEYS = 128
+
+
+def block_keys(hd: int) -> int:
+    """Keys of one block of the backward kernel
+    (``csrc/flash_attention_bwd.cuh`` ``Geo::BK``): 128 up to head_dim
+    128, 64 above."""
+    return 128 if hd <= 128 else 64
+
+
+def backward_launches(T: int, hd: int) -> int:
+    """Kernel launches of one backward call: one when every key fits
+    one block (head_dim up to 128), else two, the first writing each
+    row's sums to a (B, H, S, 2) workspace."""
+    return 1 if T <= block_keys(hd) and hd <= 128 else 2
 
 
 def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -85,18 +94,6 @@ def _check(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q, k, v must all be float32 or "
                         f"all bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
-
-
-def _check_backward(q):
-    """Raise for what the backward kernel does not take (bf16, hd > 128),
-    on any device, before anything runs."""
-    hd = q.shape[-1]
-    if q.dtype != torch.float32 or hd > MAX_HEAD_DIM_BWD:
-        raise NotImplementedError(
-            f"flash_attention backward: {q.dtype} at head_dim {hd}; the "
-            f"backward kernel takes float32 up to head_dim "
-            f"{MAX_HEAD_DIM_BWD} (training the zoo in bf16 and at wider "
-            f"heads is ROADMAP.md queue 1, item 14)")
 
 
 def _kernel_inputs(*tensors):
@@ -144,13 +141,12 @@ def attention_grad_plain(q, k, v, do, *, causal=True, window=0, softcap=0.0):
 def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
                         softcap=0.0):
     """(dq, dk, dv) of attention from the forward's log-sum-exp ``lse``
-    (B, H, S) and the output gradient ``do``: ``csrc/flash_attention_bwd.cu``
-    on CUDA tensors (one launch up to ``BLOCK_KEYS`` keys; above, a
-    first launch for the row sums and dQ, then dK and dV), the plain
-    version's autograd on CPU ones (``lse`` unused there).  f32 up to
-    head_dim 128 on either device: anything else raises."""
+    (B, H, S) f32 and the output gradient ``do`` (q's type):
+    ``csrc/flash_attention_bwd.cu`` on CUDA tensors (``backward_launches``:
+    one launch, or a first for the row sums and dQ, then dK and dV), the
+    plain version's autograd on CPU ones (``lse`` unused there).  The
+    gradients take the inputs' type."""
     _check(q, k, v)
-    _check_backward(q)
     if q.device.type == "cpu":
         return attention_grad_plain(q, k, v, do, causal=causal,
                                     window=window, softcap=softcap)
@@ -158,7 +154,7 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if (do.shape != q.shape or do.dtype != torch.float32
+    if (do.shape != q.shape or do.dtype != q.dtype
             or lse.shape != (B, H, S) or lse.dtype != torch.float32):
         raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} do not fit q "
@@ -167,25 +163,24 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
     q, k, v, do, lse = _kernel_inputs(q, k, v, do, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rows = (torch.empty(B, H, S, 2, dtype=torch.float32, device=q.device)
-            if T > BLOCK_KEYS else None)
+            if backward_launches(T, hd) == 2 else None)
     build.launch(
         "tryage_flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         None if rows is None else rows.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, hd, int(causal),
-        int(window), float(softcap), 1.0 / math.sqrt(hd))
+        int(window), float(softcap), 1.0 / math.sqrt(hd),
+        int(q.dtype == torch.bfloat16))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel (keeping its log-sum-exp) and the backward
-    kernel as one differentiable op on CUDA tensors (f32, head_dim up to
-    128: it refuses the rest before the forward runs)."""
+    kernel as one differentiable op on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        _check_backward(q)
         o, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
         ctx.save_for_backward(q, k, v, lse)
         ctx.masks = (causal, window, softcap)

@@ -14,6 +14,7 @@ WRAPPERS = {
     "flash_attention": fa_ops.flash_attention,
     "flash_attention_bwd": fa_ops.flash_attention_bwd,
     "mlstm_scan": ml_ops.mlstm_chunkwise,
+    "mlstm_scan_bwd": ml_ops.mlstm_chunkwise_bwd,
 }
 
 

@@ -24,6 +24,19 @@ The kernel's chunk length is ``pick_chunk(S, 64)``, the largest divisor
 of S not above 64, as the JAX model path takes it, so any prompt length
 runs.  ``mlstm_chunkwise_plain`` also takes other chunk lengths, as the
 JAX reference does.
+
+The gradient: when grad mode is on and q, k, v or a gate needs one,
+``mlstm_chunkwise`` runs as ``_MlstmChunkwise`` (a
+``torch.autograd.Function``): on CUDA tensors the forward kernel, which
+then also writes C and n at each chunk's start, and the backward kernel
+``csrc/mlstm_scan_bwd.cu`` (``mlstm_chunkwise_bwd``; no Pallas
+counterpart: the JAX package differentiates ``_mlstm_cell_chunkwise``
+with XLA); on CPU tensors the plain version and
+``mlstm_chunkwise_grad_plain``, autograd of it.  Training starts from a
+state that needs no gradient and reads no final state, so the backward
+takes no gradient into the initial state and none out of the final one:
+an initial state that requires grad is refused before anything runs,
+and a non-zero gradient arriving at the final state raises.
 """
 
 from __future__ import annotations
@@ -135,37 +148,142 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
-    """The mLSTM over a sequence from ``state``: the kernel on CUDA
-    tensors, ``mlstm_chunkwise_plain`` on CPU ones.  Returns
-    (h (B, S, H, dh), {"C", "n", "m"})."""
-    _check(q, k, v, i_pre, f_pre, state)
-    if q.device.type == "cpu":
-        return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm_chunkwise: no kernel for {q.device}")
-    build.refuse_grad("mlstm_chunkwise", q, k, v, i_pre, f_pre,
-                      *state.values())
+def _launch(q, k, v, i_pre, f_pre, state, keep_states):
+    """The forward kernel: (h, {"C", "n", "m"}, and with ``keep_states``
+    C and n at each chunk's start (Cst, nst), else None)."""
     B, S, H, dh = q.shape
     if dh % 8 or dh > MAX_HEAD_DIM:
         raise ValueError(f"mlstm_chunkwise: head_dim {dh} must be a multiple "
                          f"of 8 and at most {MAX_HEAD_DIM}")
     L = pick_chunk(S, MAX_CHUNK)
     # the kernel stages rows with 16-byte copies: 16-byte aligned inputs
-    args = [_aligned(t.contiguous()) for t in (q, k, v, i_pre, f_pre,
-                                               state["C"], state["n"],
-                                               state["m"])]
+    args = [_aligned(t.detach().contiguous())
+            for t in (q, k, v, i_pre, f_pre, state["C"], state["n"],
+                      state["m"])]
     h = torch.empty_like(args[0])
     C1, n1, m1 = (torch.empty_like(t) for t in args[5:])
     lib = build.library()
     work = torch.empty(lib.size("tryage_mlstm_scan_workspace", B, S, H, L),
                        dtype=torch.float32, device=q.device)
+    states = None
+    if keep_states:
+        states = (torch.empty(B, H, S // L, dh, dh, device=q.device),
+                  torch.empty(B, H, S // L, dh, device=q.device))
     build.launch(
         "tryage_mlstm_scan", q.device, *(t.data_ptr() for t in args),
         h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-        work.data_ptr(), B, S, H, dh, L, 1.0 / math.sqrt(dh))
+        work.data_ptr(),
+        *((None, None) if states is None else (t.data_ptr() for t in states)),
+        B, S, H, dh, L, 1.0 / math.sqrt(dh))
     mlstm_chunkwise.launches += 1
-    return h, {"C": C1, "n": n1, "m": m1}
+    return h, {"C": C1, "n": n1, "m": m1}, states
+
+
+def mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh,
+                               chunk=MAX_CHUNK):
+    """(dq, dk, dv, di, df) of ``mlstm_chunkwise_plain``'s h given its
+    gradient ``dh``, by torch autograd, from a state that takes no
+    gradient: the plain version the backward kernel is held against."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (q, k, v, i_pre, f_pre)]
+        state = {n: t.detach() for n, t in state.items()}
+        h, _ = mlstm_chunkwise_plain(*leaves, state, chunk)
+        return torch.autograd.grad(h, leaves, dh)
+
+
+def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states=None):
+    """(dq, dk, dv, di, df) of the scan's h from ``state``, given h (the
+    forward's output) and its gradient ``dh``: ``csrc/mlstm_scan_bwd.cu``
+    on CUDA tensors, from ``states`` = (Cst, nst), C and n at each
+    chunk's start as the forward kernel writes them (run again here when
+    not given); ``mlstm_chunkwise_grad_plain`` on CPU ones."""
+    _check(q, k, v, i_pre, f_pre, state)
+    if q.device.type == "cpu":
+        return mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_chunkwise_bwd: no kernel for {q.device}")
+    if h.shape != q.shape or dh.shape != q.shape or dh.dtype != q.dtype:
+        raise ValueError(f"mlstm_chunkwise_bwd: h {tuple(h.shape)}, dh "
+                         f"{tuple(dh.shape)} do not fit q {tuple(q.shape)}")
+    if states is None:
+        h, _, states = _launch(q, k, v, i_pre, f_pre, state, True)
+    B, S, H, d = q.shape
+    L = pick_chunk(S, MAX_CHUNK)
+    args = [_aligned(t.detach().contiguous())
+            for t in (q, k, v, i_pre, f_pre, state["m"], *states, h, dh)]
+    grads = [torch.empty_like(t) for t in args[:5]]
+    lib = build.library()
+    work = torch.empty(
+        lib.size("tryage_mlstm_scan_bwd_workspace", B, S, H, d, L),
+        dtype=torch.float32, device=q.device)
+    build.launch(
+        "tryage_mlstm_scan_bwd", q.device, *(t.data_ptr() for t in args),
+        *(t.data_ptr() for t in grads), work.data_ptr(), B, S, H, d, L,
+        1.0 / math.sqrt(d))
+    mlstm_chunkwise_bwd.launches += 1
+    return tuple(grads)
+
+
+class _MlstmChunkwise(torch.autograd.Function):
+    """The scan as one differentiable op from a state that takes no
+    gradient: the forward kernel (writing the chunk-start states) and
+    the backward kernel on CUDA tensors, the plain version and its
+    autograd on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0):
+        state = {"C": C0, "n": n0, "m": m0}
+        if q.device.type == "cpu":
+            h, out = mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)
+            states = (C0, n0)       # unused on the CPU
+        else:
+            h, out, states = _launch(q, k, v, i_pre, f_pre, state, True)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, *states, h)
+        return h, out["C"], out["n"], out["m"]
+
+    @staticmethod
+    def backward(ctx, dh, dC1, dn1, dm1):
+        for name, g in (("C", dC1), ("n", dn1), ("m", dm1)):
+            if g is not None and bool((g != 0).any()):
+                raise RuntimeError(
+                    f"mlstm_chunkwise: a gradient reached the final state's "
+                    f"{name!r}; the backward takes none out of the final "
+                    f"state (training reads no state)")
+        q, k, v, i_pre, f_pre, C0, n0, m0, Cst, nst, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        state = {"C": C0, "n": n0, "m": m0}
+        grads = mlstm_chunkwise_bwd(
+            q, k, v, i_pre, f_pre, state, h, dh.contiguous(),
+            states=None if q.device.type == "cpu" else (Cst, nst))
+        return (*grads, None, None, None)
+
+
+def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
+    """The mLSTM over a sequence from ``state``: the kernel on CUDA
+    tensors, ``mlstm_chunkwise_plain`` on CPU ones, each through
+    ``_MlstmChunkwise`` when a gradient is needed.  Returns
+    (h (B, S, H, dh), {"C", "n", "m"})."""
+    _check(q, k, v, i_pre, f_pre, state)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mlstm_chunkwise: no kernel for {q.device}")
+    if torch.is_grad_enabled():
+        if any(t.requires_grad for t in state.values()):
+            raise RuntimeError(
+                "mlstm_chunkwise: the initial state requires grad; the "
+                "backward takes no gradient into the state (training starts "
+                "from zeros): detach it")
+        if any(t.requires_grad for t in (q, k, v, i_pre, f_pre)):
+            h, C1, n1, m1 = _MlstmChunkwise.apply(
+                q, k, v, i_pre, f_pre, state["C"], state["n"], state["m"])
+            return h, {"C": C1, "n": n1, "m": m1}
+    if q.device.type == "cpu":
+        return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)
+    h, out, _ = _launch(q, k, v, i_pre, f_pre, state, False)
+    return h, out
 
 
 mlstm_chunkwise.launches = 0
+mlstm_chunkwise_bwd.launches = 0

@@ -13,6 +13,16 @@ a list with one state per layer (a recurrent state, or an attention
 layer's KV cache).  Inputs are token ids, or for the modality stubs
 (``embed_inputs=False``, the ``vlm`` and ``audio`` families) embeddings
 (B, S, d) that take the embedding table's place.
+
+Remat (``train`` and ``encode``, as ``repro.models.model.forward`` does
+it): the full units run in groups of ``unit_group`` units (1 unless the
+number of full units divides by it), each group under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
+groups' boundaries are kept for the backward and each group's forward
+runs again inside it; the remainder layers run outside any checkpoint.
+The MoE load-balance term leaves each group with the hidden state.
+Remat changes no number; a remat'd layer's forward kernels run twice a
+training step.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import MODES, Block, init_block_state
@@ -45,14 +56,16 @@ class Model(nn.Module):
             self.head = init_dense(gen, cfg.d_model, cfg.vocab_size, dtype)
 
     def forward(self, tokens=None, mode: str = "train", state=None,
-                index=0, embeds=None, cache_capacity=None, with_aux=False):
+                index=0, embeds=None, cache_capacity=None, with_aux=False,
+                remat=False, unit_group=1):
         """``train``: logits, or with ``with_aux`` (logits, the MoE
         layers' load-balance terms summed in layer order, an f32 scalar);
         ``encode``: hidden states; ``prefill``: (logits, states), every
         attention cache of ``cache_capacity`` slots (default S; window
         layers their ring); ``decode``: (logits, states) one step on
         from ``state``, the tokens at position ``index``.  ``embeds``
-        (B, S, d) replaces ``tokens``."""
+        (B, S, d) replaces ``tokens``.  ``remat`` and ``unit_group``
+        act in ``train`` and ``encode`` modes (see the module)."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         if mode == "decode" and state is None:
@@ -67,7 +80,17 @@ class Model(nn.Module):
             positions = positions[None].expand(3, B, S)
         states = []
         aux = torch.zeros((), device=x.device) if with_aux else None
-        for i, block in enumerate(self.layers):
+        first = 0
+        if remat and mode in ("train", "encode"):
+            unit = len(cfg.layer_pattern)
+            U = cfg.num_layers // unit
+            g = unit_group if (unit_group > 1 and U % unit_group == 0) else 1
+            for first in range(0, U * unit, g * unit):
+                x, a = checkpoint(self._group, x, positions, mode, first,
+                                  first + g * unit, use_reentrant=False)
+                aux = aux + a if with_aux else None
+            first = U * unit
+        for i, block in enumerate(self.layers[first:], first):
             x, st, a = block(x, mode=mode, positions=positions,
                              state=state[i] if mode == "decode" else None,
                              index=index, cache_capacity=cache_capacity)
@@ -84,6 +107,16 @@ class Model(nn.Module):
         if mode in ("prefill", "decode"):
             return logits, states
         return (logits, aux) if with_aux else logits
+
+    def _group(self, x, positions, mode, lo, hi):
+        """Layers [lo, hi) in ``train`` or ``encode`` mode: (x, their MoE
+        terms summed in layer order)."""
+        aux = torch.zeros((), device=x.device)
+        for block in self.layers[lo:hi]:
+            x, _, a = block(x, mode=mode, positions=positions)
+            if block.use_moe:
+                aux = aux + a
+        return x, aux
 
     def _embed_in(self, tokens, embeds):
         """The first block's input.  ``embed_scale`` multiplies by
@@ -145,13 +178,16 @@ def cross_entropy(logits, targets, mask):
     return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
 
 
-def lm_loss(model: Model, batch):
+def lm_loss(model: Model, batch, remat=True, unit_group: int = 1):
     """Causal-LM (decoder) or MLM (encoder) loss. Returns (loss,
     metrics): the CE plus ``router_aux_weight`` times the MoE layers'
-    summed load-balance term, with {"ce", "aux"}."""
+    summed load-balance term, with {"ce", "aux"}.  ``remat`` and
+    ``unit_group`` as ``Model.forward`` takes them (the reference's
+    defaults)."""
     cfg = model.cfg
     logits, aux = model(batch.get("tokens"), mode="train",
-                        embeds=batch.get("embeds"), with_aux=True)
+                        embeds=batch.get("embeds"), with_aux=True,
+                        remat=remat, unit_group=unit_group)
     if cfg.is_encoder:
         ce = cross_entropy(logits, batch["targets"], batch["mask"])
     else:

@@ -28,6 +28,7 @@ from repro_torch.serving import TryageEngine as TEngine
 from repro_torch.serving.metrics import render
 from torch_serving_util import (ATOL, RTOL, Clock, JRequest,  # noqa: F401
                                 make_engines, make_weights, workload)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 

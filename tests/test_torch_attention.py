@@ -144,15 +144,23 @@ def test_plain_matches_attention_ref_bf16_and_wide(S, H, KV, hd, causal,
                                       (torch.float32, 256),
                                       (torch.bfloat16, 256)])
 def test_backward_refuses_what_its_kernel_does_not_take(dtype, hd):
-    """The backward kernel is f32 up to hd 128: ``flash_attention_bwd``
-    and ``_FlashAttention`` refuse the rest on any device, before
-    anything runs, pointing at ROADMAP.md (their CPU message path)."""
-    q = torch.zeros(1, 4, 2, hd, dtype=dtype)
+    """The backward kernel takes bf16 and head_dim up to 256, as the
+    forward does: on CPU tensors ``flash_attention_bwd`` gives the plain
+    version's gradients, in the inputs' type.  It refuses what neither
+    kernel takes (float16, mixed types) before anything runs."""
+    q = torch.randn(1, 4, 2, hd, generator=torch.Generator().manual_seed(hd)
+                    ).to(dtype)
     lse = torch.zeros(1, 2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fa_ops.flash_attention_bwd(q, q, q, lse, q)
-    with pytest.raises(NotImplementedError, match="head_dim 128"):
-        fa_ops._FlashAttention.apply(q, q, q, True, 0, 0.0)
+    got = fa_ops.flash_attention_bwd(q, q, q, lse, q)
+    want = fa_ops.attention_grad_plain(q, q, q, q)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+    h = q.half()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa_ops.flash_attention_bwd(h, h, h, lse, h)
+    other = q.float() if dtype == torch.bfloat16 else q.bfloat16()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa_ops.flash_attention_bwd(q, other, q, lse, q)
     # the forward alone still runs, and the plain version differentiates
     x = q.clone().requires_grad_(True)
     fa_ops.flash_attention(x, x, x).float().sum().backward()

@@ -5,9 +5,12 @@ by torch autograd) against ``jax.grad`` of the reference oracle
 ``repro.kernels.flash_attention.ref.attention_ref`` (K/V repeated for
 GQA) and of the whole attention block ``attend_full(impl="xla")``
 (projections, RoPE, masks), for causal, sliding-window, softcap and GQA
-cases.  Then a CPU emulation of the backward kernel's order of work
-(``csrc/flash_attention_bwd.cu``: per block of up to 128 keys and tile
-of query rows, S^T and dP^T key-major, P from the forward's
+cases, at head_dim 256 (gemma3's) too, and in bf16 (both sides compute
+in f32 and round the gradients to bf16: within one bf16 ulp of the
+reference's, plus 1e-5 of the largest).  Then a CPU emulation of the
+backward kernel's order of work (``csrc/flash_attention_bwd.cu``: per
+block of up to 128 keys (64 above head_dim 128) and tile of query rows,
+S^T and dP^T key-major, P from the forward's
 log-sum-exp, each row renormalised by its own sum of P with D = sum(P
 dP) / sum(P) (from the same pass up to 128 keys, from a first pass
 over the key blocks past it), dS = P (dP - D) with the softcap factor,
@@ -34,6 +37,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.common import AttnConfig as TAttn
 from repro_torch.models.common import ModelConfig as TCfg
 from test_torch_tf32 import MMS, chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -52,6 +56,11 @@ CASES = [
     (2, 16, 16, 4, 1, 16, False, 0, 3.0),
     (1, 40, 40, 6, 3, 8, True, 7, 2.0),
     (1, 20, 8, 2, 2, 8, False, 3, 0.0),    # rows 10.. see no key at all
+]
+# head_dim 256: a local window and a global causal layer, as gemma3's
+WIDE = [
+    (1, 24, 24, 2, 1, 256, True, 8, 0.0),
+    (1, 20, 20, 2, 2, 256, True, 0, 0.0),
 ]
 
 
@@ -74,11 +83,10 @@ def _torch_grads(q, k, v, do, **masks):
         *(torch.from_numpy(a) for a in (q, k, v, do)), **masks)]
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_plain_grad_matches_jax_reference(case):
-    B, S, T, H, KV, hd, causal, window, softcap = case
-    q, k, v, do = _inputs(B, S, T, H, KV, hd)
-    masks = dict(causal=causal, window=window, softcap=softcap)
+def _jax_grads(q, k, v, do, H, KV, **masks):
+    """jax.grad of ``attention_ref`` (K/V repeated for GQA) for the
+    output gradient ``do``, in the inputs' type."""
+    B, S, _, hd = q.shape
 
     def ref(q, k, v):
         k, v = (jnp.repeat(a, H // KV, axis=2) for a in (k, v))
@@ -86,12 +94,41 @@ def test_plain_grad_matches_jax_reference(case):
             B * H, a.shape[1], hd)
         o = attention_ref(bh(q), bh(k), bh(v), **masks)
         o = o.reshape(B, H, S, hd).transpose(0, 2, 1, 3)
-        return jnp.sum(o * do)
+        return jnp.sum(o.astype(jnp.float32) * do.astype(jnp.float32))
 
-    want = jax.grad(ref, argnums=(0, 1, 2))(q, k, v)
+    return jax.grad(ref, argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("case", CASES + WIDE)
+def test_plain_grad_matches_jax_reference(case):
+    B, S, T, H, KV, hd, causal, window, softcap = case
+    q, k, v, do = _inputs(B, S, T, H, KV, hd)
+    masks = dict(causal=causal, window=window, softcap=softcap)
+    want = _jax_grads(q, k, v, do, H, KV, **masks)
     got = _torch_grads(q, k, v, do, **masks)
     for name, g, w in zip("qkv", got, want):
         _close(g, w, name)
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[4], WIDE[0], WIDE[1]])
+def test_plain_grad_bf16_matches_jax_reference(case):
+    B, S, T, H, KV, hd, causal, window, softcap = case
+    masks = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, do = (jnp.asarray(a, jnp.bfloat16)
+                   for a in _inputs(B, S, T, H, KV, hd))
+    want = [np.asarray(w.astype(jnp.float32), np.float64)
+            for w in _jax_grads(q, k, v, do, H, KV, **masks)]
+    got = fa_ops.attention_grad_plain(
+        *(torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in (q, k, v, do)), **masks)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy().astype(np.float64)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 2.0 ** -126)))
+                      - 7)
+        err = np.abs(g - w)
+        assert (err <= ulp + REL * np.abs(w).max()).all(), (
+            name, float((err - ulp).max()))
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[1] == c[2]])
@@ -213,7 +250,8 @@ def _grads(p, dpt, dcap, dead, inv, dd):
 def _emulated_bwd(q, k, v, lse, do, causal, window, softcap,
                   mm=torch.matmul):
     """The backward kernel's order of work, with its five products
-    through ``mm``.  Up to ``BLOCK_KEYS`` keys (one launch): per (b, kv
+    through ``mm``.  Up to ``block_keys(hd)`` keys at head_dim up to
+    128 (one launch): per (b, kv
     head), per query head of the group and tile of rows, S^T and dP^T
     once, the row sums from that same pass, dV += P^T dO, dK += dS^T q,
     and dQ of the tile, complete.  Past it (two launches): per (b, h,
@@ -223,9 +261,9 @@ def _emulated_bwd(q, k, v, lse, do, causal, window, softcap,
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, torch.tensor(1 / math.sqrt(hd))
-    R, NB = (64 if hd <= 64 else 32), fa_ops.BLOCK_KEYS
+    R, NB = (64 if hd <= 64 else 32), fa_ops.block_keys(hd)
     masks = dict(causal=causal, window=window, softcap=softcap)
-    whole = T <= NB
+    whole = fa_ops.backward_launches(T, hd) == 1
     n_kb = -(-T // NB)
     dq, dk, dv = (torch.zeros_like(a) for a in (q, k, v))
 
@@ -297,8 +335,10 @@ def _emulated_bwd(q, k, v, lse, do, causal, window, softcap,
 
 
 # the switch between the kernel's one-launch and two-launch paths, hd 128
-# (tiles of 32 rows) and long causal windows
+# (tiles of 32 rows), long causal windows, and hd 256 (blocks of 64 keys,
+# always two launches)
 PATH_CASES = [
+    (1, 70, 70, 2, 1, 256, True, 16, 0.0),
     (2, 96, 128, 4, 2, 40, False, 0, 0.0),
     (2, 96, 129, 4, 2, 40, False, 0, 2.0),
     (1, 64, 64, 2, 2, 128, True, 0, 0.0),

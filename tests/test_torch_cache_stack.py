@@ -48,6 +48,7 @@ from test_torch_engine import _workload
 from torch_serving_util import (JRequest, assert_same_results,
                                 assert_same_stats, make_engines,
                                 make_weights)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytest.importorskip("jax")
 

@@ -26,6 +26,7 @@ from repro_torch.core import objective as tobj
 from repro_torch.core import router as trouter
 from repro_torch.serving import Request as TRequest
 from repro_torch.serving import TryageEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package is the reference; a host without it (the GPU host)
 # skips this module and runs tests/test_torch_gpu.py

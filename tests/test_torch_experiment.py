@@ -25,6 +25,7 @@ from repro_torch.core import qtable as tqt
 from repro_torch.core import router as trouter
 from repro_torch.core.pareto import pareto_sweep as tpareto
 from repro_torch.data.corpus import DomainCorpus as TCorpus
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 

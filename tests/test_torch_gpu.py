@@ -21,9 +21,16 @@ expert and depth per uid, NLL atol=rtol=1e-4.  Attention has a backward
 kernel: dQ, dK and dV within 1e-4 of each gradient's largest magnitude
 against torch autograd of the plain version, bit-identical on a rerun;
 one expert training step on the card against the CPU: loss to rtol
-1e-4, weights within 1e-4 of each leaf's largest magnitude.  The other
-kernels have none, so their wrappers refuse a CUDA input that requires
-grad under grad mode.  The cache tiers on the card: ``_score_from_emb``
+1e-4, weights within 1e-4 of each leaf's largest magnitude.  It takes
+bf16 and head_dim up to 256 too: bf16 gradients within one bf16 ulp of
+the plain f32 gradient rounded, plus 1e-4 of the largest.  The mLSTM
+scan has one as well: dq, dk, dv, di, df within 1e-4 of each gradient's
+largest magnitude against autograd of the chunkwise plain version,
+bit-identical on a rerun; and a bf16 ``train_step`` of a 2-layer
+tinyllama and of a reduced xlstm on the card launches both backward
+kernels and no plain version, with its loss falling.  The router heads
+have none, so their wrappers refuse a CUDA input that requires grad
+under grad mode.  The cache tiers on the card: ``_score_from_emb``
 (one ``router_score`` launch) within 1e-6 of the plain head on the same
 tensors, ``_embed_batch`` within 1e-5 of the CPU's largest magnitude,
 and a ``DiskKVStore``-backed engine answers everything from T2 after a
@@ -186,17 +193,19 @@ def test_flash_attention_refuses_what_it_does_not_take_on_the_card():
     h = torch.zeros(1, 4, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         fa_ops.flash_attention(h, h, h)
-    # the backward kernel is f32 up to hd 128: a graph that would need it
-    # is refused before the forward runs
+    # the backward takes bf16 and head_dim 256, and refuses an output
+    # gradient of another type
     for dt, hd in ((torch.bfloat16, 64), (torch.float32, 256)):
         q = torch.zeros(1, 4, 2, hd, device="cuda", dtype=dt,
                         requires_grad=True)
-        before = fa_ops.flash_attention.launches
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fa_ops.flash_attention(q, q, q)
-        assert fa_ops.flash_attention.launches == before
-        with torch.no_grad():
-            assert fa_ops.flash_attention(q, q, q).shape == q.shape
+        out = fa_ops.flash_attention(q, q, q)
+        out.sum().backward()
+        assert q.grad.dtype == dt and bool(torch.isfinite(q.grad).all())
+        lse = fa_ops._forward(q.detach(), q.detach(), q.detach(), True, 0,
+                              0.0, True)[1]
+        with pytest.raises(ValueError, match="do not fit"):
+            fa_ops.flash_attention_bwd(q.detach(), q.detach(), q.detach(),
+                                       lse, q.detach().half())
 
 
 def _head_case(B, M, tied, seed, d=128, hh=128, n_c=2):
@@ -519,20 +528,24 @@ def _grad_cases():
 @pytest.mark.parametrize("name", ["flash_attention", "mlstm_chunkwise",
                                   "router_score", "router_cascade"])
 def test_wrappers_refuse_grad_on_the_card(name):
-    """Only attention has a backward kernel: its output carries a
-    gradient, computed by that kernel (held to the plain version by
-    ``test_flash_attention_backward_matches_plain``).  The others, under
+    """Attention and the mLSTM scan have backward kernels: their outputs
+    carry a gradient, computed by those kernels (held to the plain
+    versions by ``test_flash_attention_backward_matches_plain`` and
+    ``test_mlstm_backward_matches_plain``).  The router heads, under
     grad mode with a CUDA input that requires grad, raise instead of
     silently dropping the gradient; under ``no_grad`` (and with no such
     input) every kernel launches."""
     _card()
     call = _grad_cases()[name]
-    if name == "flash_attention":
+    if name in ("flash_attention", "mlstm_chunkwise"):
         out = call(True)
+        out = out[0] if isinstance(out, tuple) else out
         assert out.grad_fn is not None
-        before = fa_ops.flash_attention_bwd.launches
+        bwd = (fa_ops.flash_attention_bwd if name == "flash_attention"
+               else ml_ops.mlstm_chunkwise_bwd)
+        before = bwd.launches
         out.sum().backward()
-        assert fa_ops.flash_attention_bwd.launches == before + 1
+        assert bwd.launches == before + 1
     else:
         with pytest.raises(RuntimeError, match="no backward"):
             call(True)
@@ -579,6 +592,128 @@ def test_flash_attention_backward_matches_plain(B, S, T, H, KV, hd, causal,
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+BF16_BWD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
+    (2, 77, 77, 4, 2, 16, True, 0, 0.0),
+    (2, 96, 129, 4, 2, 40, False, 0, 2.0),
+    (2, 60, 60, 2, 2, 128, False, 0, 0.0),     # hd 128, one launch
+    (1, 130, 130, 2, 2, 256, True, 64, 0.0),   # hd 256: 64-key blocks
+    (2, 64, 64, 4, 2, 136, False, 0, 2.0),     # odd hd / 8: halves overlap
+    (1, 90, 90, 2, 1, 248, False, 20, 1.0),
+    (2, 512, 512, 8, 2, 64, True, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window,softcap",
+                         BF16_BWD_CASES)
+def test_flash_attention_backward_bf16_and_wide_heads(B, S, T, H, KV, hd,
+                                                      causal, window,
+                                                      softcap, dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(S + hd)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g).to(dt)
+    q, k, v, do = r(B, S, H, hd), r(B, T, KV, hd), r(B, T, KV, hd), \
+        r(B, S, H, hd)
+    masks = dict(causal=causal, window=window, softcap=softcap)
+    lse = fa_ops._forward(q, k, v, causal, window, softcap, True)[1]
+    got = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
+    again = fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
+    want = fa_ops.attention_grad_plain(q.float(), k.float(), v.float(),
+                                       do.float(), **masks)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dt and torch.equal(a, b)
+        err, scale = (a.float() - w).abs(), float(w.abs().max())
+        if dt == torch.float32:
+            assert float(err.max()) <= 1e-4 * scale
+        else:
+            bound = bf16_ulp(w.bfloat16().float().abs()) + 1e-4 * scale
+            assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def _mlstm_inputs(B, S, H, dh, carried, seed):
+    """q, k, v, i, f and a state for the scan on the card: forget gates
+    biased by +3 as the model's are; a carried state small and random,
+    else zeros."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    q, k, v = r(B, S, H, dh), r(B, S, H, dh), r(B, S, H, dh)
+    i_pre, f_pre = r(B, S, H), r(B, S, H) + 3.0
+    if carried:
+        state = {"C": r(B, H, dh, dh) * 0.3, "n": r(B, H, dh) * 0.3,
+                 "m": r(B, H)}
+    else:
+        state = {"C": torch.zeros(B, H, dh, dh, device="cuda"),
+                 "n": torch.zeros(B, H, dh, device="cuda"),
+                 "m": torch.zeros(B, H, device="cuda")}
+    return q, k, v, i_pre, f_pre, state
+
+
+MLSTM_BWD_CASES = [  # (B, S, H, dh, carried state)
+    (1, 40, 3, 16, False), (2, 128, 2, 64, False), (2, 96, 2, 32, True),
+    (2, 128, 2, 256, False), (2, 512, 4, 1024, False)]
+
+
+@pytest.mark.parametrize("B,S,H,dh,carried", MLSTM_BWD_CASES)
+def test_mlstm_backward_matches_plain(B, S, H, dh, carried):
+    _card()
+    q, k, v, i, f, st = _mlstm_inputs(B, S, H, dh, carried, seed=dh)
+    dh_ = torch.randn(B, S, H, dh, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, i, f)]
+    h, _ = ml_ops.mlstm_chunkwise(*leaves, st)
+    got = torch.autograd.grad(h, leaves, dh_)
+    h, _ = ml_ops.mlstm_chunkwise(*leaves, st)
+    again = torch.autograd.grad(h, leaves, dh_)
+    want = ml_ops.mlstm_chunkwise_grad_plain(q, k, v, i, f, st, dh_)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("arch,cut", [("tinyllama-1.1b", {"num_layers": 2}),
+                                      ("xlstm-1.3b", None)])
+def test_bf16_train_step_on_card(arch, cut):
+    """A bf16 training step runs both backward kernels where the model
+    has their layers, no plain version, and the loss falls on a fixed
+    batch."""
+    import dataclasses
+    from repro_torch.launch.steps import train_step
+    from repro_torch.optim import adamw_init
+    _card()
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, **cut) if cut else dataclasses.replace(
+        cfg.reduced(), dtype="bfloat16")
+    model = init_model(cfg, seed=0, device="cuda")
+    opt = adamw_init(model)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 128),
+                                     device="cuda", generator=g)}
+    plain = {n: getattr(mod, n) for mod, n in (
+        (fa_ops, "attention_plain"), (fa_ops, "attention_grad_plain"),
+        (ml_ops, "mlstm_chunkwise_plain"),
+        (ml_ops, "mlstm_chunkwise_grad_plain"))}
+    try:
+        for mod, n in ((fa_ops, "attention_plain"),
+                       (fa_ops, "attention_grad_plain"),
+                       (ml_ops, "mlstm_chunkwise_plain"),
+                       (ml_ops, "mlstm_chunkwise_grad_plain")):
+            setattr(mod, n, lambda *a, n=n, **k: pytest.fail(f"{n} ran"))
+        launches.reset_launch_counts()
+        losses = [float(train_step(model, opt, batch, lr=1e-3))
+                  for _ in range(3)]
+    finally:
+        for n, fn in plain.items():
+            setattr(fa_ops if "attention" in n else ml_ops, n, fn)
+    counts = launches.launch_counts()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    pat = cfg.layer_pattern
+    kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+    assert counts["flash_attention_bwd"] == 3 * kinds.count("attn")
+    assert counts["mlstm_scan_bwd"] == 3 * kinds.count("mlstm")
 
 
 def test_flash_attention_backward_takes_strided_inputs():

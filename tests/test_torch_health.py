@@ -24,6 +24,7 @@ from repro_torch.serving import Request as TRequest
 from torch_serving_util import (Clock, JRequest, assert_same_results,
                                 assert_same_stats, make_engines,
                                 make_weights, requests, workload)
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.core.objective import fallback_choice as jax_fallback_choice
 from repro.serving import ExpertHealth as JHealth

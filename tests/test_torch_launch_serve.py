@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.launch import serve as tserve
 from torch_serving_util import make_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 

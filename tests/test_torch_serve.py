@@ -18,6 +18,7 @@ from repro_torch.serving import Request as TRequest
 from torch_serving_util import (JRequest, assert_same_results,
                                 assert_same_stats, make_engines,
                                 make_weights, requests, workload)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from repro_torch.data.batching import BatchIterator as TBatches
 from repro_torch.data.corpus import DomainCorpus as TCorpus
 from repro_torch.models import model as tm
 from repro_torch.optim import adamw_init as tadamw_init
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -40,6 +40,7 @@ from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tm
 from repro_torch.models.common import INPUT_SHAPES, AttnConfig, ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package is the reference; a host without it (the GPU host)
 # skips this module and runs tests/test_torch_gpu.py
