@@ -223,10 +223,18 @@ ZOO_TRAIN_CROSS = [("tinyllama-1.1b", 2, 2, 128), ("gemma3-4b", 2, 1, 128),
                    ("xlstm-1.3b", 8, 1, 128), ("qwen2-moe-a2.7b", 2, 2, 128)]
 TRAIN_CROSS_LOSS_RTOL, TRAIN_CROSS_GRAD_REL = 1e-4, 1e-3
 # a leaf whose card-vs-CPU gap passes TRAIN_CROSS_GRAD_REL is held
-# instead to ROUNDING_FACTOR times its own one-ulp sensitivity (the CPU
-# gradient's move when the first block's input moves by one ulp), where
-# that sensitivity is at least a tenth of TRAIN_CROSS_GRAD_REL: random
-# xLSTM layers amplify rounding past the gate (see zoo_train_crosscheck)
+# instead to TRAIN_ROUNDING_FACTOR times its own one-ulp sensitivity (the
+# CPU gradient's move when the first block's input moves by one ulp),
+# where that sensitivity is at least a tenth of TRAIN_CROSS_GRAD_REL:
+# random xLSTM layers amplify rounding past the gate.  On an H100 the 14
+# xlstm leaves past the gate read 0.91-1.18 times their sensitivity
+# (largest gap 1.55e-3 against 1.70e-3), so 3 leaves room for one more
+# draw's spread and none for an error of a few ulps more
+TRAIN_ROUNDING_FACTOR = 3.0
+# an MoE token that chose other experts on the card at a near tie changes
+# every gradient downstream and upstream of it: the step is drawn again
+# from the next token seed, up to this many draws, until no route differs
+TRAIN_CROSS_DRAWS = 3
 # train_cli: the reference CLI's batch and sequence, TRAIN_STEPS steps
 CLI_TRAIN_BATCH, CLI_TRAIN_SEQ = 8, 128
 # the zoo's attention at its prefill shapes: (B, S, H, KV, hd, causal,
@@ -2003,12 +2011,14 @@ def zoo_train_crosscheck_phase(torch) -> dict:
     card (the kernels) and on a CPU copy of the same weights (the plain
     versions).  Losses to TRAIN_CROSS_LOSS_RTOL, every leaf's gradient
     within TRAIN_CROSS_GRAD_REL of its largest magnitude; a leaf past it
-    is held to ROUNDING_FACTOR times its one-ulp sensitivity on the CPU
-    where that sensitivity is at least TRAIN_CROSS_GRAD_REL / 10 (the
-    leaves and their sensitivities are reported).  For MoE the expert
-    sets are compared token by token first: a token that chose other
-    experts on the card is excused only at a near tie, and then the
-    gradients downstream of it differ and are reported, not held."""
+    is held to TRAIN_ROUNDING_FACTOR times its one-ulp sensitivity on
+    the CPU where that sensitivity is at least TRAIN_CROSS_GRAD_REL / 10
+    (the leaves and their sensitivities are reported).  For MoE the
+    expert sets are compared token by token first: a token that chose
+    other experts on the card is excused only at a near tie, and then
+    the step is drawn again from the next token seed (at most
+    TRAIN_CROSS_DRAWS draws), so that every gradient is held on a draw
+    where all routes agree."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
@@ -2020,35 +2030,48 @@ def zoo_train_crosscheck_phase(torch) -> dict:
         t0 = time.perf_counter()
         gpu = model_lib.init_model(cfg, seed=31, device="cuda")
         cpu = copy.deepcopy(gpu).cpu()
-        tokens = zoo_tokens(torch, cfg, B, S, seed=32)
-        t1 = time.perf_counter()
-        loss_g, grads_g, routes_g = train_cross_grads(torch, gpu, tokens)
-        t2 = time.perf_counter()
-        loss_c, grads_c, routes_c = train_cross_grads(torch, cpu,
-                                                      tokens.cpu())
-        t3 = time.perf_counter()
-        rel = abs(loss_g - loss_c) / abs(loss_c)
-        scale = {n: max(float(g.abs().max()), 1e-30)
-                 for n, g in grads_c.items()}
-        g_err = {n: float((grads_g[n] - g).abs().max()) / scale[n]
-                 for n, g in grads_c.items()}
-        worst = max(g_err, key=g_err.get)
-        row = {"arch": arch, "layers": layers, "batch": B, "seq": S,
-               "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
-               "worst_grad_rel_err": g_err[worst], "worst_grad_leaf": worst,
-               "card_s": t2 - t1, "cpu_s": t3 - t2}
-        routes_differ = False
-        if cfg.moe is not None:
+        tied_draws = []
+        for draw in range(TRAIN_CROSS_DRAWS):
+            tokens = zoo_tokens(torch, cfg, B, S, seed=32 + draw)
+            t1 = time.perf_counter()
+            loss_g, grads_g, routes_g = train_cross_grads(torch, gpu, tokens)
+            t2 = time.perf_counter()
+            loss_c, grads_c, routes_c = train_cross_grads(torch, cpu,
+                                                          tokens.cpu())
+            t3 = time.perf_counter()
+            rel = abs(loss_g - loss_c) / abs(loss_c)
+            check(rel <= TRAIN_CROSS_LOSS_RTOL,
+                  f"{arch}: training loss card {loss_g} vs CPU {loss_c}")
+            if cfg.moe is None:
+                break
             diffs = expert_set_diffs(torch, cfg, routes_g, routes_c)
             for d in diffs:
                 check(d["differ"] == d["near_tie"],
                       f"{arch}: layer {d['layer']}: {d['differ']} tokens "
                       f"chose other experts on the card, {d['near_tie']} "
                       f"at a near tie")
-                routes_differ |= d["differ"] > 0
+            if not any(d["differ"] for d in diffs):
+                break
+            tied_draws.append({"token_seed": 32 + draw, "loss_rel_err": rel,
+                               "expert_set_diffs": diffs})
+        check(len(tied_draws) < TRAIN_CROSS_DRAWS,
+              f"{arch}: routes differed at a near tie in every one of "
+              f"{TRAIN_CROSS_DRAWS} draws; no gradient held: {tied_draws}")
+        scale = {n: max(float(g.abs().max()), 1e-30)
+                 for n, g in grads_c.items()}
+        g_err = {n: float((grads_g[n] - g).abs().max()) / scale[n]
+                 for n, g in grads_c.items()}
+        worst = max(g_err, key=g_err.get)
+        row = {"arch": arch, "layers": layers, "batch": B, "seq": S,
+               "token_seed": 32 + len(tied_draws),
+               "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+               "worst_grad_rel_err": g_err[worst], "worst_grad_leaf": worst,
+               "card_s": t2 - t1, "cpu_s": t3 - t2}
+        if cfg.moe is not None:
             row["expert_set_diffs"] = diffs
+            row["tied_draws"] = tied_draws
         past = [n for n, e in g_err.items() if e > TRAIN_CROSS_GRAD_REL]
-        if past and not routes_differ:
+        if past:
             _, grads_j, _ = train_cross_grads(torch, cpu, tokens.cpu(),
                                               jitter=True)
             sens = {n: float((grads_j[n] - grads_c[n]).abs().max())
@@ -2057,13 +2080,10 @@ def zoo_train_crosscheck_phase(torch) -> dict:
             row["past_gate"] = {n: g_err[n] for n in past}
             for n in past:
                 check(sens[n] >= TRAIN_CROSS_GRAD_REL / 10
-                      and g_err[n] <= ROUNDING_FACTOR * sens[n],
+                      and g_err[n] <= TRAIN_ROUNDING_FACTOR * sens[n],
                       f"{arch}: first-step gradient of {n} rel err "
                       f"{g_err[n]}, its one-ulp sensitivity {sens[n]}")
-        row["gradients_held"] = not routes_differ
         row["setup_s"] = t1 - t0
-        check(rel <= TRAIN_CROSS_LOSS_RTOL,
-              f"{arch}: training loss card {loss_g} vs CPU {loss_c}")
         rows.append(row)
         del gpu, cpu, grads_g, grads_c
         torch.cuda.empty_cache()
@@ -2071,8 +2091,9 @@ def zoo_train_crosscheck_phase(torch) -> dict:
            "tolerances": {"loss_rtol": TRAIN_CROSS_LOSS_RTOL,
                           "grad_rel_to_max": TRAIN_CROSS_GRAD_REL,
                           "past_it_times_one_ulp_sensitivity":
-                              ROUNDING_FACTOR,
-                          "route_gap": ROUTE_GAP}}
+                              TRAIN_ROUNDING_FACTOR,
+                          "route_gap": ROUTE_GAP,
+                          "draws": TRAIN_CROSS_DRAWS}}
     emit("zoo_train_crosscheck", **out)
     return out
 
@@ -3158,7 +3179,8 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
             return torch.autograd.grad(oh, (qh, kh, vh), doh,
                                        retain_graph=True)
 
-        nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * KV * hd) \
+        # q, dO, dQ at q's size; k, v, dK, dV at k's; lse in f32
+        nbytes = 2 * (3 * B * S * H * hd + 4 * B * S * KV * hd) \
             + 4 * B * H * S
         flops = 10 * B * H * hd * attention_pairs(S, causal, window)
         bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)

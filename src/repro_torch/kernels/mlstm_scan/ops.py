@@ -192,12 +192,13 @@ def mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh,
         return torch.autograd.grad(h, leaves, dh)
 
 
-def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states=None):
+def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states):
     """(dq, dk, dv, di, df) of the scan's h from ``state``, given h (the
     forward's output) and its gradient ``dh``: ``csrc/mlstm_scan_bwd.cu``
     on CUDA tensors, from ``states`` = (Cst, nst), C and n at each
-    chunk's start as the forward kernel writes them (run again here when
-    not given); ``mlstm_chunkwise_grad_plain`` on CPU ones."""
+    chunk's start as the forward kernel writes them with ``keep_states``;
+    ``mlstm_chunkwise_grad_plain`` on CPU ones, which needs neither h nor
+    ``states``."""
     _check(q, k, v, i_pre, f_pre, state)
     if q.device.type == "cpu":
         return mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh)
@@ -206,10 +207,13 @@ def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states=None):
     if h.shape != q.shape or dh.shape != q.shape or dh.dtype != q.dtype:
         raise ValueError(f"mlstm_chunkwise_bwd: h {tuple(h.shape)}, dh "
                          f"{tuple(dh.shape)} do not fit q {tuple(q.shape)}")
-    if states is None:
-        h, _, states = _launch(q, k, v, i_pre, f_pre, state, True)
     B, S, H, d = q.shape
     L = pick_chunk(S, MAX_CHUNK)
+    want = ((B, H, S // L, d, d), (B, H, S // L, d))
+    if len(states) != 2 or any(tuple(t.shape) != w
+                               for t, w in zip(states, want)):
+        raise ValueError(f"mlstm_chunkwise_bwd: states "
+                         f"{[tuple(t.shape) for t in states]}, want {want}")
     args = [_aligned(t.detach().contiguous())
             for t in (q, k, v, i_pre, f_pre, state["m"], *states, h, dh)]
     grads = [torch.empty_like(t) for t in args[:5]]
@@ -234,13 +238,13 @@ class _MlstmChunkwise(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0):
         state = {"C": C0, "n": n0, "m": m0}
-        if q.device.type == "cpu":
-            h, out = mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)
-            states = (C0, n0)       # unused on the CPU
+        if q.device.type == "cpu":    # the plain backward needs no states
+            (h, out), states = mlstm_chunkwise_plain(q, k, v, i_pre, f_pre,
+                                                     state), ()
         else:
             h, out, states = _launch(q, k, v, i_pre, f_pre, state, True)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, *states, h)
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, h, *states)
         return h, out["C"], out["n"], out["m"]
 
     @staticmethod
@@ -251,13 +255,12 @@ class _MlstmChunkwise(torch.autograd.Function):
                     f"mlstm_chunkwise: a gradient reached the final state's "
                     f"{name!r}; the backward takes none out of the final "
                     f"state (training reads no state)")
-        q, k, v, i_pre, f_pre, C0, n0, m0, Cst, nst, h = ctx.saved_tensors
+        q, k, v, i_pre, f_pre, C0, n0, m0, h, *states = ctx.saved_tensors
         if dh is None:
             dh = torch.zeros_like(h)
         state = {"C": C0, "n": n0, "m": m0}
-        grads = mlstm_chunkwise_bwd(
-            q, k, v, i_pre, f_pre, state, h, dh.contiguous(),
-            states=None if q.device.type == "cpu" else (Cst, nst))
+        grads = mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h,
+                                    dh.contiguous(), states)
         return (*grads, None, None, None)
 
 

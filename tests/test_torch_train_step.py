@@ -10,13 +10,17 @@ with ``microbatch`` 1 and 2: the losses agree to rtol 1e-5 and the
 weights after 2 steps within 6 lr (an Adam step moves a weight by at
 most about lr whatever its gradient, so where a near-zero gradient's
 f32 noise flips its sign two steps can differ by a few lr).  One
-exception: xlstm's second loss, to rtol 1e-3.  Its first-step gradients
+exception: xlstm's second loss, to rtol 5e-4.  Its first-step gradients
 carry f32 noise of 1e-4 of each leaf's largest magnitude in the
 reference itself (its chunkwise and sequential mLSTM forms differ by
 that much), Adam's first step turns that noise into lr-sized moves, and
 the reference's two forms then give second losses 1.4e-4 apart
 (6.451918 and 6.451029 on this batch); the port's is 3.1e-4 from the
-chunkwise form's, and its weights stay within 6 lr.  On the
+chunkwise form's, and its weights stay within 6 lr.  Over four weight
+and batch seeds, at microbatch 1 and 2 (``scripts/xlstm_loss_gap.py``),
+the port's gap read 0.4e-4 to 3.1e-4 and the
+reference's own two forms' 0.3e-4 to 1.4e-4, while rounding the mLSTM's
+q, k and v to bf16 gives 8.5e-4 to 1.5e-2: 5e-4 lies between.  On the
 port alone: remat on or off and ``unit_group`` 2 give identical losses
 and gradients (remat changes no number).  The reduced xlstm and jamba
 steps are the heaviest (the reference marks them ``slow`` in
@@ -70,7 +74,7 @@ def _host_mesh():
 
 LOSS_RTOL = 1e-5
 # xlstm's losses after the first step (see the module docstring)
-AFTER_STEP_RTOL = {"xlstm_13b": 1e-3}
+AFTER_STEP_RTOL = {"xlstm_13b": 5e-4}
 GRAD_REL = 1e-5
 RECURRENT = ["jamba_v01_52b", "xlstm_13b"]
 ARCHS = [a for a in list_archs() if a not in RECURRENT]
