@@ -62,8 +62,12 @@ just before it and read just after:
   qwen2-moe), and a bit-identical rerun;
 * ``mlstm_grad``: the mLSTM backward kernel against torch autograd of
   the chunkwise plain version at xlstm-1.3b's training shape (2 x 512,
-  dh 1024), the reduced config's and with a carried state, and a
-  bit-identical rerun;
+  dh 1024), the reduced config's and with a carried state (one chunk
+  over the sequence), and at two lengths where it takes the forward's
+  chunks (from a zero state and from a carried one), each from a zero
+  state through the zero-state skip, and a bit-identical rerun (its
+  kernel launches a call are counted right after the build, while the
+  profiler's trace is whole: ``mlstm_bwd_launches``);
 * ``zoo_train``: ``train_step`` in bf16 with remat at full width, 5
   AdamW steps on one fixed batch each: tinyllama-1.1b (22 layers, 4 x
   512), gemma3-4b (34 layers, 1 x 2048), xlstm-1.3b (48 layers, 2 x
@@ -202,9 +206,12 @@ ZOO_ATTN_GRAD = [(4, 512, 32, 4, 64, True, 0, "tinyllama-1.1b"),
 # the mLSTM backward against autograd of the chunkwise plain version:
 # (B, S, H, dh, carried state); xlstm-1.3b's training shape, the reduced
 # config's (d 256: dh 256) and a carried state (the kernel takes one; no
-# gradient flows into it)
+# gradient flows into it) take one chunk (ops.backward_chunk); the last
+# two the forward's chunk of 64, from the chunk-start states.  A zero
+# state is passed as such (zero_state: its products skipped)
 MLSTM_GRAD_CASES = [(2, 512, 4, 1024, False), (2, 128, 2, 256, False),
-                    (2, 96, 2, 32, True)]
+                    (2, 96, 2, 32, True), (1, 2048, 2, 256, False),
+                    (1, 1024, 2, 128, True)]
 MLSTM_GRAD_REL_TOL = 1e-4
 # zoo_train: (arch, fields cut, batch, seq), full width in bf16, remat on,
 # TRAIN_STEPS AdamW steps (lr ZOO_TRAIN_LR) on one fixed batch; only
@@ -349,11 +356,11 @@ SOURCES = {
 ROUTER_PATH = ("router_score", "router_cascade", "flash_attention")
 # kernels whose products run on the tensor cores (3xTF32; bf16 attention
 # in one or two TF32 passes): name -> the functions that must hold TF32
-# HMMA ("" every one).  The mLSTM backward's small launches (gates, den,
-# dS, the sums, the outputs) run on the CUDA cores in f32; its products
-# all run in mlstm_bwd_gemm.
+# HMMA or HGMMA ("" every one).  The mLSTM backward's small launches
+# (prep, ds, gate_grads) run on the CUDA cores in f32; its products all
+# run in the mlstm_bwd_mma_* launches (wgmma: TF32 HGMMA).
 TENSOR_CORE = {"flash_attention": "", "flash_attention_bwd": "",
-               "mlstm_scan": "", "mlstm_scan_bwd": "mlstm_bwd_gemm"}
+               "mlstm_scan": "", "mlstm_scan_bwd": "mlstm_bwd_mma"}
 
 
 T0 = time.perf_counter()
@@ -397,9 +404,9 @@ def device_phase(torch) -> dict:
 
 def sass_mma(build, lib) -> dict:
     """Per device function of the built library: how many tensor-core
-    instructions (HMMA) its SASS holds, and which kinds, from
-    ``cuobjdump -sass`` of each object file (all at once; one pass over
-    the whole library takes a minute)."""
+    instructions (HMMA from mma.sync, HGMMA from wgmma) its SASS holds,
+    and which kinds, from ``cuobjdump -sass`` of each object file (all at
+    once; one pass over the whole library takes a minute)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     objs = sorted(build.objects_dir(lib.path).glob("*.o")) or [lib.path]
     procs = [subprocess.Popen([str(cuobjdump), "-sass", str(o)],
@@ -414,9 +421,10 @@ def sass_mma(build, lib) -> dict:
             if "Function :" in line:
                 cur = out.setdefault(line.split("Function :")[1].strip(),
                                      {"hmma": 0, "kinds": []})
-            elif cur is not None and "HMMA" in line:
+            elif cur is not None and ("HMMA" in line or "HGMMA" in line):
                 cur["hmma"] += 1
-                kind = line[line.index("HMMA"):].split()[0]
+                op = "HGMMA" if "HGMMA" in line else "HMMA"
+                kind = line[line.index(op):].split()[0]
                 if kind not in cur["kinds"]:
                     cur["kinds"].append(kind)
     return out
@@ -1803,11 +1811,12 @@ def attention_grad_phase(torch) -> float:
 
 
 def mlstm_grad_phase(torch) -> float:
-    """The mLSTM backward kernel (``mlstm_chunkwise_bwd``, from the
-    forward kernel's chunk-start states) against torch autograd of the
-    chunkwise plain version on the card, per gradient within
-    MLSTM_GRAD_REL_TOL of its largest magnitude; a rerun must be
-    bit-identical.  Returns the largest max abs error."""
+    """The mLSTM backward kernel (``mlstm_chunkwise_bwd`` at its own
+    chunk: one chunk from the initial state, or the forward's chunk from
+    the chunk-start states the forward kernel writes; a zero state passed
+    as such) against torch autograd of the chunkwise plain version on the
+    card, per gradient within MLSTM_GRAD_REL_TOL of its largest magnitude;
+    a rerun must be bit-identical.  Returns the largest max abs error."""
     from repro_torch.kernels.mlstm_scan import ops as ml_ops
     cases, worst = [], 0.0
     for B, S, H, dh, carried in MLSTM_GRAD_CASES:
@@ -1815,12 +1824,15 @@ def mlstm_grad_phase(torch) -> float:
                                          seed=dh)
         g = torch.Generator(device="cuda").manual_seed(dh + 1)
         dh_ = torch.randn(B, S, H, dh, device="cuda", generator=g)
-        h, _, states = ml_ops._launch(q, k, v, i, f, st, True)
-        got = ml_ops.mlstm_chunkwise_bwd(q, k, v, i, f, st, h, dh_, states)
-        again = ml_ops.mlstm_chunkwise_bwd(q, k, v, i, f, st, h, dh_, states)
+        chunk = ml_ops.backward_chunk(S, dh)
+        h, _, states = ml_ops._launch(q, k, v, i, f, st, chunk < S)
+        got, again = (ml_ops.mlstm_chunkwise_bwd(
+            q, k, v, i, f, st, h, dh_, states, zero_state=not carried)
+            for _ in range(2))
         want = ml_ops.mlstm_chunkwise_grad_plain(q, k, v, i, f, st, dh_)
         torch.cuda.synchronize()
-        case = {"B": B, "S": S, "H": H, "dh": dh, "carried_state": carried}
+        case = {"B": B, "S": S, "H": H, "dh": dh, "carried_state": carried,
+                "chunk": chunk, "zero_state_skip": not carried}
         for name, a, b, w in zip(("dq", "dk", "dv", "di", "df"), got, again,
                                  want):
             e, scale = float((a - w).abs().max()), float(w.abs().max())
@@ -2903,8 +2915,44 @@ def profiled_ms(torch, fn, kernel: str, iters=50, host=True):
     return ms or None
 
 
+def mlstm_bwd_launches(torch) -> dict:
+    """The mLSTM backward's kernel launches a call, from the profiler's
+    trace, at the first MLSTM_GRAD_CASES shape (one chunk) and the first
+    that takes chunks: taken right after the build, before any other
+    phase has traced (later in the script the trace drops events)."""
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops
+    out = {}
+    for B, S, H, dh, carried in (MLSTM_GRAD_CASES[0], MLSTM_GRAD_CASES[3]):
+        q, k, v, i, f, st = mlstm_inputs(torch, B, S, H, dh, carried, seed=5)
+        dh_ = torch.randn(B, S, H, dh, device="cuda")
+        chunk = ml_ops.backward_chunk(S, dh)
+        h, _, states = ml_ops._launch(q, k, v, i, f, st, chunk < S)
+        out[f"{B}x{S}x{H}x{dh} chunk {chunk}"] = device_launches(
+            torch, lambda: ml_ops.mlstm_chunkwise_bwd(
+                q, k, v, i, f, st, h, dh_, states, zero_state=not carried),
+            SOURCES["mlstm_scan_bwd"][2])
+    emit("mlstm_bwd_launches", kernel_launches_per_call=out)
+    return out
+
+
+def device_launches(torch, fn, kernel: str, iters=10):
+    """CUDA kernel launches per call of ``fn`` whose names hold
+    ``kernel``, from the profiler's trace (None where it shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and kernel in e.key)
+    return n / iters or None
+
+
 def times_phase(torch, launches_per_run: dict, err: dict,
-                bwd_per_step: int, zoo_per_step: dict) -> list:
+                bwd_per_step: int, zoo_per_step: dict,
+                bwd_launches: dict) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mlstm_scan import ops as ml_ops
@@ -2935,28 +2983,40 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                  # per row and chunk: q k^T and (W*S) v, q C and k^T v
                  B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh),
                  {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}, None))
-    # the mLSTM backward at xlstm-1.3b's training shape (2 x 512): from the
-    # forward kernel's chunk-start states; no library call computes it
+    # the mLSTM backward at xlstm-1.3b's training shape (2 x 512), as a
+    # training step runs it: one chunk over the sequence (the forward
+    # writes no states), from a zero state passed as such; no library
+    # call computes it
     B, S = 2, 512
     nc = S // L
+    chunk = ml_ops.backward_chunk(S, dh)
     q, k, v, i, f, st = mlstm_inputs(torch, B, S, H, dh, False, seed=3)
     dh_ = torch.randn(B, S, H, dh, device="cuda")
-    h, _, states = ml_ops._launch(q, k, v, i, f, st, True)
+    h, _, states = ml_ops._launch(q, k, v, i, f, st, chunk < S)
     bwd_args = (q, k, v, i, f, st)     # bound now: i is reused below
     rows.append(("mlstm_scan_bwd",
                  lambda a=bwd_args, h=h, d=dh_, s=states:
-                 ml_ops.mlstm_chunkwise_bwd(*a, h, d, s),
+                 ml_ops.mlstm_chunkwise_bwd(*a, h, d, s, zero_state=True),
                  lambda a=bwd_args, d=dh_:
                  ml_ops.mlstm_chunkwise_grad_plain(*a, d), None,
                  # q, k, v, h, dh read and dq, dk, dv written; i, f read
-                 # and di, df written; the chunk-start states read; m0
-                 4 * (8 * B * S * H * dh + 4 * B * S * H
-                      + B * H * nc * (dh * dh + dh) + B * H),
-                 # per row and chunk: C dnum, G v, G^T k and the
-                 # recurrence's (aq)^T dnum (2 L dh^2 each); q k^T,
-                 # dnum v^T, dS k, dS^T q, P^T dnum (2 L^2 dh each)
-                 B * H * nc * (8 * L * dh * dh + 10 * L * L * dh),
-                 {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}, None))
+                 # and di, df written; m0 (one chunk: no states)
+                 4 * (8 * B * S * H * dh + 4 * B * S * H + B * H),
+                 # per row, one chunk: q k^T, dh v^T, dS k, dS^T q,
+                 # P'^T dh over the causal pairs (2 dh each)
+                 B * H * 5 * dh * S * (S + 1),
+                 {"B": B, "S": S, "H": H, "dh": dh, "chunk": chunk}, None))
+    # the design before one chunk, as its yardstick: the forward's chunk
+    # L, the chunk-start states read, and per row and chunk C dnum, G v,
+    # G^T k and the recurrence's (aq)^T dnum (2 L dh^2 each) beside q k^T,
+    # dnum v^T, dS k, dS^T q, P^T dnum (2 L^2 dh each)
+    old_bytes = 4 * (8 * B * S * H * dh + 4 * B * S * H
+                     + B * H * nc * (dh * dh + dh) + B * H)
+    old_flops = B * H * nc * (8 * L * dh * dh + 10 * L * L * dh)
+    # the forward at the same shape with and without the chunk-start states
+    fwd_states = {n: (lambda keep=keep, a=bwd_args: ml_ops._launch(*a, keep))
+                  for n, keep in (("with_states", True),
+                                  ("without_states", False))}
     extra = []
     # the main path's shape first, then hd 40, 8 heads, and the batch
     # sizes most of run()'s launches take (1 to 8)
@@ -3032,6 +3092,15 @@ def times_phase(torch, launches_per_run: dict, err: dict,
             entry["launches_per_expert_step"] = bwd_per_step
         if name == "mlstm_scan_bwd":
             entry["launches_per_xlstm_step"] = zoo_per_step[name]
+            entry["bound_old_design_ms"], entry["bound_old_design_by"] = (
+                bound_ms(old_bytes, old_flops))
+            entry["bound_tc_old_design_ms"], _ = bound_ms(
+                old_bytes, 3 * old_flops, TF32_TC_FLOPS_PER_S)
+            entry["kernel_launches_per_call"] = bwd_launches
+            entry["forward_at_this_shape"] = {
+                n: {"ms": events_ms(torch, fn),
+                    "device_ms": profiled_ms(torch, fn, "mlstm_scan")}
+                for n, fn in fwd_states.items()}
         if libcall is not None:
             # the library call's own kernels, device time and error
             lib_k = profiled_kernels(torch, libcall)
@@ -3275,6 +3344,7 @@ def main() -> int:
     t0 = time.perf_counter()
     info = device_phase(torch)
     build_phase()
+    bwd_launches = mlstm_bwd_launches(torch)
     err = parity_phase(torch)
     setup = main_setup(torch)
     main, run_res = main_path_phase(torch, setup)
@@ -3302,7 +3372,7 @@ def main() -> int:
     kernels = times_phase(torch, path_launches, err,
                           train["attention_bwd_per_expert_step"],
                           {"mlstm_scan_bwd": zoo_launches["mlstm_scan_bwd"]
-                           // TRAIN_STEPS})
+                           // TRAIN_STEPS}, bwd_launches)
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items() if k != "shape"} for e in kernels]}),
         flush=True)

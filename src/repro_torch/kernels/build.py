@@ -62,12 +62,12 @@ SIGNATURES = {
     # | B S T H KV hd causal window | softcap scale | bf16 | stream
     "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 4 + [_I] * 8
     + [_F] * 2 + [_I] + [_P],
-    # q k v i f C0 n0 m0 | h C1 n1 m1 work Cst nst (null: not written)
-    # | B S H dh chunk | scale | stream
-    "tryage_mlstm_scan": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_F] + [_P],
-    # q k v i f m0 Cst nst h dh | dq dk dv di df work | B S H dh chunk
-    # | scale | stream
-    "tryage_mlstm_scan_bwd": [_P] * 10 + [_P] * 6 + [_I] * 5 + [_F] + [_P],
+    # q k v i f C0 n0 m0 | h C1 n1 m1 work Cst nst mst (null: not
+    # written) | B S H dh chunk | scale | stream
+    "tryage_mlstm_scan": [_P] * 8 + [_P] * 8 + [_I] * 5 + [_F] + [_P],
+    # q k v i f m0 Cst nst mst h dh | dq dk dv di df work | B S H dh
+    # chunk zero_state | scale | stream
+    "tryage_mlstm_scan_bwd": [_P] * 11 + [_P] * 6 + [_I] * 6 + [_F] + [_P],
     # grid threads | stream: an empty kernel, the launch floor
     "tryage_launch_floor": [_I] * 2 + [_P],
 }

@@ -61,9 +61,11 @@
 //    accumulator per 32-wide slice to its sum, launch 2's split over
 //    k leaves each warp 3 dh / 64 chained steps.
 //
-// With non-null Cst (B, H, S / L, dh, dh) and nst (B, H, S / L, dh),
-// launch 2 also writes C and n as they stand at each chunk's start, for
-// the backward (mlstm_scan_bwd.cu); serving passes null.
+// With non-null Cst (B, H, S / L, dh, dh), nst (B, H, S / L, dh) and mst
+// (B, H, S / L), C, n and the stabiliser m as they stand at each chunk's
+// start are written too (launch 2 writes C and n, launch 1 m), for the
+// backward when it takes chunks shorter than the sequence
+// (mlstm_scan_bwd.cu); serving and one-chunk backwards pass null.
 //
 // The C entry point launches both, so the wrapper counts one launch.
 #include <cuda_runtime.h>
@@ -123,8 +125,8 @@ extern "C" __global__ void __launch_bounds__(kThreads1)
 mlstm_scan_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ ig, const float* __restrict__ fg,
                         const float* __restrict__ m0, float* __restrict__ work,
-                        float* __restrict__ m1, int S, int H, int dh, int L,
-                        float scale, size_t gate_off) {
+                        float* __restrict__ m1, float* __restrict__ mst, int S,
+                        int H, int dh, int L, float scale, size_t gate_off) {
   __shared__ __align__(16) float qk_s[2][2][kL * kP1];
   __shared__ float F_s[kL], i_s[kL], mt_s[kL];
   __shared__ float mprev_s;
@@ -189,7 +191,10 @@ mlstm_scan_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k
       } else {
         if (ta < L) F_s[ta] = Fa, i_s[ta] = ia, mt_s[ta] = mta;
         if (tb < L) F_s[tb] = Fb, i_s[tb] = ibb, mt_s[tb] = mtb;
-        if (lane == 0) mprev_s = m;
+        if (lane == 0) {
+          mprev_s = m;
+          if (mst != nullptr) mst[(size_t)bh * nc + c] = m;
+        }
       }
     }
   }
@@ -578,8 +583,9 @@ extern "C" int tryage_mlstm_scan(const float* q, const float* k, const float* v,
                                  const float* C0, const float* n0,
                                  const float* m0, float* h, float* C1,
                                  float* n1, float* m1, float* work,
-                                 float* Cst, float* nst, int B, int S, int H,
-                                 int dh, int L, float scale, void* stream) {
+                                 float* Cst, float* nst, float* mst, int B,
+                                 int S, int H, int dh, int L, float scale,
+                                 void* stream) {
   if (B <= 0 || H <= 0 || dh <= 0) return 0;
   if (S <= 0 || L <= 0 || L > kL || S % L || dh % 8)
     return (int)cudaErrorInvalidValue;
@@ -588,7 +594,7 @@ extern "C" int tryage_mlstm_scan(const float* q, const float* k, const float* v,
   // workspace: P (B H S L floats), then kG factors per (row, chunk)
   const size_t gate_off = ((size_t)B * H * S * L + 3) / 4 * 4;
   mlstm_scan_chunk_kernel<<<dim3(nc, B * H), kThreads1, 0, st>>>(
-      q, k, ig, fg, m0, work, m1, S, H, dh, L, scale, gate_off);
+      q, k, ig, fg, m0, work, m1, mst, S, H, dh, L, scale, gate_off);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t rows = (size_t)(dh + kKS - 1) / kKS * kKS;

@@ -1,62 +1,102 @@
 // The gradient of the chunkwise mLSTM scan (mlstm_scan.cu) on Hopper, f32,
 // in the model layout: from q, k, v (B, S, H, dh), i, f (B, S, H), the
 // initial stabiliser m0 (B, H), the forward's h and its gradient dh
-// (B, S, H, dh), and C and n at each chunk's start (Cst (B, H, S / L, dh,
-// dh), nst (B, H, S / L, dh), which the forward writes when it is given
-// them), it writes dq, dk, dv (B, S, H, dh) and di, df (B, S, H).  The
-// Pallas kernel _mlstm_kernel (src/repro/kernels/mlstm_scan/kernel.py)
-// has no backward: the JAX package trains through XLA's autodiff of
-// _mlstm_cell_chunkwise (src/repro/models/ssm.py).  This is that
+// (B, S, H, dh), and C, n and m at the start of each of the backward's
+// chunks (Cst (B, H, S / L, dh, dh), nst (B, H, S / L, dh), mst (B, H,
+// S / L): with one chunk the initial state, else what the forward writes
+// when it is given them), it writes dq, dk, dv (B, S, H, dh) and di, df
+// (B, S, H).  It replaces no Pallas kernel: _mlstm_kernel
+// (src/repro/kernels/mlstm_scan/kernel.py, row 4 of PERF.md's table) has
+// no backward, and the JAX package trains through XLA's autodiff of
+// _mlstm_cell_chunkwise (src/repro/models/ssm.py:254).  This is that
 // gradient, for a scan that starts from a state that needs no gradient
 // and whose final state the loss does not read (training: the wrapper
 // refuses anything else).
 //
-// Algorithm.  In chunk c of L steps, with q~ = q / sqrt(dh), the
-// forward's F, m_t and m (the stabiliser at the chunk's start),
-//   a_t = e^{F_t + m - m_t},  D_ts = e^{F_t - F_s + i_s - m_t} (s <= t),
-//   P_ts = D_ts (q~_t . k_s),  num_t = a_t q~_t C + sum_s P_ts v_s,
-//   den_t = a_t q~_t . n + sum_s P_ts,  h_t = num_t / max(|den_t|, e^{-m_t}),
-//   C' = decay C + sum_s w_s k_s v_s^T,  n' = decay n + sum_s w_s k_s,
-// w_s = e^{F_L - F_s + i_s - m_L}, decay = e^{F_L + m - m_L}.  h does not
-// depend on the stabilisers in exact arithmetic (num and den both carry
-// e^{-m_t}, and either branch of the max cancels it), so m_t and m are
-// held constant and i and f get their gradient through F and the
-// log-weights alone.  With dnum_t = dh_t / max(..), dden_t = -sign(den_t)
-// (dh_t . h_t) / max(..) where |den_t| binds (else 0), and G_c the
-// gradient of the state after chunk c (G of the last chunk is 0):
-//   G_{c-1} = decay_c G_c + sum_t (a_t q~_t) dnum_t^T   (dn likewise)
-//   dq~_t = a_t (C dnum_t + dden_t n) + sum_s dS_ts k_s,
-//   dk_s = w_s (G v_s + dn') + sum_t dS_ts q~_t,  dv_s = w_s G^T k_s
-//          + sum_t P_ts dnum_t,
-// with dP_ts = dnum_t . v_s + dden_t, dS_ts = dP_ts D_ts, and the
-// log-weights' gradients dP_ts P_ts (rows to F_t, columns to i_s - F_s),
-// a_t (dnum_t . q~_t C + dden_t q~_t . n) to F_t, w_s (k_s . (G v_s +
-// dn')) to F_L - F_s + i_s, decay (<G, C> + <dn', n>) to F_L; then
+// Algorithm.  h does not depend on the stabiliser in exact arithmetic
+// (num and den both carry e^{-m_t}, and either branch of max(|den|,
+// e^{-m_t}) cancels it), so the stabiliser is held constant, i and f get
+// their gradient through the log-weights alone, and the backward's chunk
+// L need not be the forward's: the wrapper takes L = S (one chunk) where
+// that takes fewer operations, else the forward's chunk
+// (ops.backward_chunk).  Per row, in f64: F the cumulative log-sigmoid of
+// f over the whole sequence, g_s = i_s - F_s, M_t = max(m0, max_{s<=t}
+// g_s) (so m_t = F_t + M_t); in chunk c, which starts after step c0 - 1
+// and ends at step e, with q~ = q / sqrt(dh):
+//   D_ts = e^{g_s - M_t} (s <= t),  P_ts = D_ts (q~_t . k_s),
+//   a_t = e^{M_{c0-1} - M_t},  w_s = e^{g_s - M_e},
+//   decay = e^{M_{c0-1} - M_e},
+//   num_t = kappa a_t q~_t C + sum_s P_ts v_s,  den_t likewise with n, 1,
+//   h_t = num_t / max(|den_t|, e^{-m_t}),
+// where kappa = e^{m_c - F_{c0-1} - M_{c0-1}} takes the forward's states,
+// scaled by its own f32 stabiliser m_c, to this one (1 with one chunk).
+// With r_t = 1 / max(..), dden_t = -sign(den_t) (dh_t . h_t) r_t where
+// |den_t| binds (else 0), dP'_ts = dh_t . v_s, and G_c, dn_c the gradient
+// of the state after chunk c (0 for the last chunk):
+//   dS~_ts = (r_t dP'_ts + dden_t) D_ts / sqrt(dh),  P'_ts = r_t P_ts,
+//   dq_t = sum_s dS~_ts k_s + kappa a_t / sqrt(dh) (r_t C dh_t + dden_t n),
+//   dk_s = sum_t dS~_ts q_t + w_s (G v_s + dn),
+//   dv_s = sum_t P'_ts dh_t + w_s G^T k_s,
+//   G_{c-1} = decay G_c + sum_t (a_t r_t q~_t) dh_t^T,
+//   dn_{c-1} = decay dn_c + sum_t dden_t a_t q~_t,
+// and the log-weights' gradients: (r dP' + dden) P summed over s (to F_t)
+// and over t (to i_s - F_s), the a_t terms to F_t, w_s (k_s . (G v_s +
+// dn)) to F_e - F_s + i_s, decay kappa (<G, C> + <dn, n>) to F_e; then
 // dlogsigmoid(f_u) = sum over the chunk's t >= u of dF_t, and df_u =
-// that times sigmoid(-f_u).
+// that times sigmoid(-f_u).  With one chunk G and dn are 0, so the
+// products of the state's gradient drop out, and a caller whose initial
+// state is zero says so (zero_state): the products that read it (C dh
+// and the a_t terms) are skipped.  The forward then writes no states.
 //
 // Bound on the H100: at xlstm-1.3b's training shape (B 2, S 512, H 4,
-// dh 1024, L 64) the operations: three products of 2 L dh^2 a (row,
-// chunk) (C dnum, G v, G^T k) and the recurrence's one, beside five of 2
-// L^2 dh; the bytes are Cst, G (written and read) and the (B, S, H, dh)
-// tensors.  Design: the work is a chain of launches from one C entry
-// point (the wrapper counts one launch):
-// * every product runs in mlstm_bwd_gemm, one batched product kernel
-//   (64 x 64 output tiles, 8 warps, 3xTF32 on the tensor cores as the
-//   forward, a fresh accumulator for each 32-wide k slice added in f32 so
-//   that no mma.sync chain is long), with an operand read as stored or
-//   transposed (template flags) and a batch index that walks (row,
-//   chunk) in the layouts above;
-// * the recurrence over chunks is one such product per chunk, walked in
-//   reverse (G_{c-1} from G_c), batched over the rows; G is written for
-//   every chunk (B H (S / L) dh^2 floats of workspace), so the three
-//   big products of every chunk then run at once;
-// * the rest is small and runs on the CUDA cores in f32, one block per
-//   (row, chunk): the gates (the forward's scan, again), den and the
-//   per-step factors, dS, the states' dot product, the outputs and the
-//   gate gradients.  Every sum runs in a fixed order and there are no
-//   atomics: dq's sum over the columns of C is one product's k loop, so
-//   a rerun gives bit-identical gradients.
+// dh 1024) with one chunk from a zero state, the five products (S and dP'
+// with K = dh, then dS~ k, dS~^T q and P'^T dh with K over the causal
+// range) take 5 dh S (S + 1) operations a row: 10.76 GFLOP for the call
+// (37.0 at the forward's chunk of 64, where the state products were 93%
+// of it), 0.161 ms on the f32 CUDA cores and 0.065 ms at three TF32
+// passes on the tensor cores; the bytes it must move (q, k, v, h, dh in,
+// dq, dk, dv out) are 134 MB, 0.040 ms.  So it is bound by operations:
+// the design puts them on the tensor cores in 3xTF32 and feeds those
+// from shared memory, whose traffic then holds it back: a 32-wide slice
+// of a 64 x 128 tile (0.52 MFLOP of f32 work) moves about 176 KB through
+// it (the copies, the split's reads and writes, the A fragments and
+// wgmma's reads of B).
+//
+// Design: five launches from one C entry (six with chunks; the wrapper
+// counts one launch):
+// 1. mlstm_bwd_prep, a block per (16 steps, row): the gates by f64
+//    scans over the row (each block scans the row again: S steps against
+//    16 dh dot products), and per step dh . h and, with a state, q . n.
+// 2. mlstm_bwd_mma_sdp: S = q k^T and dP' = dh v^T, a block per 64 x 128
+//    tile on or below the causal diagonal of each chunk and per product;
+//    the S blocks write P = D S / sqrt(dh) and its row sums (per tile),
+//    the dP' blocks dP'.
+// 3. mlstm_bwd_ds, a block per tile: den, r and dden of its rows from the
+//    row sums, then dS~ and P' over dP' and P in place, and the
+//    log-weights' gradient summed per tile row and column.
+// 4. mlstm_bwd_mma_rec (chunks only), a block per 64 x 128 tile of G:
+//    walks the chunks in reverse, its tile of G held in registers from
+//    one chunk to the next; writes G and dn of each chunk and its part of
+//    <G, C> + <dn, n>.
+// 5. mlstm_bwd_mma_out: dq, dk and dv, a block per 64 x 128 output tile
+//    of each: with a state, C dh (or v G^T, k G) first, scaled per row as
+//    its A operand lands; then dS~ k, dS~^T q, P'^T dh over the causal
+//    range only.
+// 6. mlstm_bwd_gate_grads, a block per (row, chunk): di and df.
+// Every product runs in one main loop on the tensor cores through wgmma:
+// a 64 x 128 block tile, two warpgroups of 64 x 64 (wgmma m64n64k8 with
+// TF32 operands), k slices of 32 in a ring of three shared-memory stages
+// filled by 16-byte cp.async along each operand's stored rows.  A slice is
+// split into TF32 halves (hi, lo) once, when it lands: A into [m][k] pairs
+// that each warp loads as its wgmma register fragment, B into wgmma's
+// K-major core matrices, hi and lo apart (wgmma cannot transpose a TF32
+// operand, so an operand read transposed is transposed by the split).
+// 3xTF32: three wgmma a k step (lo hi, hi lo, then hi hi), into a fresh
+// accumulator for each slice added in f32 (the tensor cores' accumulation
+// rounds toward zero).  The split of slice j + 1 and the copy of slice
+// j + 3 run while slice j's wgmma run, one barrier a slice.  Tiles wholly
+// above the diagonal are never launched.  Every sum runs in a fixed order
+// and there are no atomics, so a rerun gives bit-identical gradients.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -66,22 +106,60 @@
 namespace {
 
 using tryage::Split;
-using tryage::split_tf32;
 
-constexpr int kL = 64;                 // most steps per chunk
-// per (row, chunk) gates: F, i, m_t, a, w, then decay and m at the start
-constexpr int kGB = 5 * kL + 4;
-constexpr int kF = 0, kI = kL, kMT = 2 * kL, kA = 3 * kL, kW = 4 * kL;
-constexpr int kDec = 5 * kL, kMp = 5 * kL + 1;
-// per (row, chunk) gradient sums: the log-weights' row and column sums,
-// da, dw, then d decay
-constexpr int kGG = 4 * kL + 4;
-constexpr int kRS = 0, kCS = kL, kDA = 2 * kL, kDW = 3 * kL, kDD = 4 * kL;
-constexpr unsigned kFull = 0xffffffffu;
-
-// product tiles
 constexpr int kThreads = 256;
-constexpr int kBM = 64, kBN = 64, kBKg = 32, kPg = kBKg + 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxL = 2048;  // longest chunk: gate_grads keeps its dF on chip
+constexpr int kStateL = 64;  // longest chunk shorter than the sequence
+constexpr int kPrep = 16;    // steps a prep block
+
+// product tiles: 64 x 128 a block, two warpgroups of 64 x 64, k slices of 32
+constexpr int kBM = 64, kBN = 128, kBK = 32, kNS = 3;
+constexpr int kSp = kBK + 4;  // float2 pitch of a split row: conflict-free
+constexpr int kRawA = kBM * (kBK + 4), kRawB = kBN * (kBK + 4);
+static_assert(kBK * (kBM + 4) <= kRawA && kBK * (kBN + 4) <= kRawB,
+              "a transposed raw tile fits its stage");
+
+struct Smem {
+  // split B, its hi and lo halves apart, in wgmma's core matrices (8 n by
+  // 4 k, 16 bytes a row): the core matrix of (n / 8, k / 4) at float
+  // ((k / 4) (kBN / 8) + n / 8) 32
+  float spBh[2][kBN * kBK];
+  float spBl[2][kBN * kBK];
+  float2 spA[2][kBM * kSp];  // split A (hi, lo), [m][k]
+  float rawA[kNS][kRawA];  // slices as stored: [m][k], or [k][m]
+  float rawB[kNS][kRawB];  // [n][k], or [k][n]
+};
+
+// An operand as stored: element (r, c) at p[r ld + c] for r < rows and c <
+// cols (cols a multiple of 4; past either, zero); coef, where set, scales
+// stored row r as the slice is split.
+struct Opnd {
+  const float* p;
+  long long ld;
+  int rows, cols;
+  const float* coef;
+};
+
+}  // namespace
+
+namespace tryage {
+// The kernels' arguments (in a named namespace: the kernels' mangled names
+// then carry no file name, which build checks match kernels by).
+struct MlstmBwdArgs {
+  const float *q, *k, *v, *ig, *fg, *m0, *Cst, *nst, *mst, *h, *dh_;
+  float *dq, *dk, *dv, *di, *df;
+  double *gg, *Mg;
+  float *a, *w, *lo, *dhh, *qn, *r, *dd, *ar, *ars, *decay, *kappa;
+  float *P, *dP, *prow, *lrow, *lcol, *dap, *dwp, *dw2p, *ddp, *dn, *G;
+  int S, H, dh, L, nc, LP, nt, ns, nd, ni, tiles, zero_state;
+  float scale;
+};
+}  // namespace tryage
+
+namespace {
+
+using Args = tryage::MlstmBwdArgs;
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
@@ -93,552 +171,902 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// An operand of a batched product: batch (bh, c) starts at
-// p + (bh / H) sb + (bh % H) sh + c sc, and row r of it at + r ld.
-struct Op {
-  const float* p;
-  long long sb, sh, sc;
-  int ld;
-  __device__ __forceinline__ const float* at(int bh, int c, int H) const {
-    return p + (bh / H) * sb + (bh % H) * sh + c * sc;
-  }
-};
+// The block's sum of x, in a fixed order, in every thread.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_sum(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
 
-struct GemmArgs {
-  Op a, b, cin, out;   // cin: added times beta (p null: nothing added)
-  const float* beta;   // beta of row bh at beta[bh * beta_bh]
-  long long beta_bh;
-  int M, N, K, H, nzc;  // the batch index z is bh * nzc + c
-};
+// The exclusive scan over the block's threads (in thread order) of x, by
+// sum or by max, in a fixed order.
+template <bool kMax>
+__device__ __forceinline__ double block_excl(double x, double* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const double id = kMax ? -INFINITY : 0.0;
+  double incl = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl = kMax ? fmax(incl, y) : incl + y;
+  }
+  double excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = id;
+  if (lane == 31) tmp[warp] = incl;
+  __syncthreads();
+  double pre = id;
+  for (int w = 0; w < warp; ++w) pre = kMax ? fmax(pre, tmp[w]) : pre + tmp[w];
+  __syncthreads();
+  return kMax ? fmax(pre, excl) : pre + excl;
+}
+
+// Rows of chunk c of a (B, S, H, dh) tensor, as an operand.
+__device__ __forceinline__ Opnd rows_op(const float* p, const Args& a, int bh,
+                                        int c, const float* coef = nullptr) {
+  const int b = bh / a.H, hh = bh - b * a.H;
+  return {p + (((size_t)b * a.S + (size_t)c * a.L) * a.H + hh) * a.dh,
+          (long long)a.H * a.dh, a.L, a.dh, coef};
+}
+
+// Element (t, d) of chunk c of a (B, S, H, dh) tensor.
+__device__ __forceinline__ size_t model_at(const Args& a, int bh, int c, int t,
+                                           int d) {
+  const int b = bh / a.H, hh = bh - b * a.H;
+  return (((size_t)b * a.S + (size_t)c * a.L + t) * a.H + hh) * a.dh + d;
+}
+
+// Chunk-local tile idx -> (t-tile, s-tile): t-tile ti holds s-tiles 0 ..
+// ti / 2 (64-row by 128-column tiles on or below the diagonal).
+__device__ __forceinline__ void tile_of(int idx, int& ti, int& sj) {
+  ti = 0;
+  while (idx > (ti >> 1)) {
+    idx -= (ti >> 1) + 1;
+    ++ti;
+  }
+  sj = idx;
+}
+
+// ---------------------------------------------------------------- products
+
+// Stored rows [r0, r0 + R) x columns [c0, c0 + C) of o into raw (pitch C +
+// 4), 16 bytes a copy, zero outside o.
+template <int R, int C>
+__device__ __forceinline__ void stage(float* raw, const Opnd& o, int r0,
+                                      int c0) {
+  constexpr int kQ = C / 4;
+  static_assert(R * kQ % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < R * kQ / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kQ, c = (i - r * kQ) * 4;
+    const int gr = r0 + r, gc = c0 + c;
+    const bool in = gr < o.rows && gc < o.cols;
+    tryage::cp_async16(raw + r * (C + 4) + c,
+                       in ? o.p + (size_t)gr * o.ld + gc : o.p, in);
+  }
+}
+
+// Element quad (r, kq .. kq + 3) of a landed slice of R rows by kBK, as
+// stored: [row][k], or with T [k][row].
+template <int R, bool T>
+__device__ __forceinline__ void load_quad(float (&x)[4], const float* raw,
+                                          int r, int kq) {
+  if (T) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = raw[(kq + e) * (R + 4) + r];
+  } else {
+    const float4 y = *reinterpret_cast<const float4*>(raw + r * (kBK + 4) + kq);
+    x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+  }
+}
+
+// Part it of splitting a landed A slice into sp[row][k] = (hi, lo), times
+// o.coef of the stored row where set (stored row r0 + row, or with T k0 +
+// k).  A lane takes 4 k of one row, the lanes of a warp consecutive rows;
+// the upper half of each row's 4 goes first in every other group of 4
+// rows, so that a quarter warp's 16-byte stores meet no bank twice.
+template <int R, bool T>
+__device__ __forceinline__ void split_part(float2* sp, const float* raw,
+                                           const Opnd& o, int r0, int k0,
+                                           int it) {
+  static_assert(R * (kBK / 4) % kThreads == 0, "whole quads a thread");
+  const int i = threadIdx.x + it * kThreads;
+  const int r = i % R, kq = (i / R) * 4;
+  float x[4];
+  load_quad<R, T>(x, raw, r, kq);
+  if (o.coef != nullptr) {
+    if (T) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gk = k0 + kq + e;
+        x[e] *= gk < o.rows ? o.coef[gk] : 0.0f;
+      }
+    } else {
+      const int gr = r0 + r;
+      const float cf = gr < o.rows ? o.coef[gr] : 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] *= cf;
+    }
+  }
+  float s[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Split z = tryage::split_tf32_rz(x[e]);
+    s[2 * e] = __uint_as_float(z.big);
+    s[2 * e + 1] = __uint_as_float(z.small);
+  }
+  const float4 first = make_float4(s[0], s[1], s[2], s[3]);
+  const float4 second = make_float4(s[4], s[5], s[6], s[7]);
+  float4* dst = reinterpret_cast<float4*>(sp + r * kSp + kq);
+  const int h = (r >> 2) & 1;
+  dst[h] = h ? second : first;
+  dst[1 - h] = h ? first : second;
+}
+
+// Part it of splitting a landed B slice (kBN rows n) into the core-matrix
+// halves hi and lo.  A lane takes 4 k of one n, the lanes of a warp
+// consecutive n: a quarter warp writes one core matrix's 128 bytes.
+template <bool T>
+__device__ __forceinline__ void split_part_b(float* hi, float* lo,
+                                             const float* raw, int it) {
+  static_assert(kBN * (kBK / 4) % kThreads == 0, "whole quads a thread");
+  const int i = threadIdx.x + it * kThreads;
+  const int n = i % kBN, kq = (i / kBN) * 4;
+  float x[4], h[4], l[4];
+  load_quad<kBN, T>(x, raw, n, kq);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Split z = tryage::split_tf32_rz(x[e]);
+    h[e] = __uint_as_float(z.big);
+    l[e] = __uint_as_float(z.small);
+  }
+  const int at = ((kq / 4) * (kBN / 8) + n / 8) * 32 + (n % 8) * 4;
+  *reinterpret_cast<float4*>(hi + at) = make_float4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<float4*>(lo + at) = make_float4(l[0], l[1], l[2], l[3]);
+}
+
+// A wgmma descriptor of a K-major operand in core matrices, no swizzle:
+// the two core matrices of a k step 2048 bytes apart (LBO), the 8-row
+// groups 128 bytes apart (SBO).
+__device__ __forceinline__ uint64_t core_desc(const float* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((kBN / 8) * 128 / 16) << 16) |
+         ((uint64_t)(128 / 16) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared memory written by the threads, then read by wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= A B for the warpgroup's 64 x 64 tile and one k step of 8: A from
+// registers (the warp's 16 rows, mma.sync's m16n8k8 layout), B from shared
+// memory; d is zeroed first where scale_d is 0.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[2][4][4], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0][0]), "+f"(d[0][0][1]), "+f"(d[0][0][2]), "+f"(d[0][0][3]),
+        "+f"(d[0][1][0]), "+f"(d[0][1][1]), "+f"(d[0][1][2]), "+f"(d[0][1][3]),
+        "+f"(d[0][2][0]), "+f"(d[0][2][1]), "+f"(d[0][2][2]), "+f"(d[0][2][3]),
+        "+f"(d[0][3][0]), "+f"(d[0][3][1]), "+f"(d[0][3][2]), "+f"(d[0][3][3]),
+        "+f"(d[1][0][0]), "+f"(d[1][0][1]), "+f"(d[1][0][2]), "+f"(d[1][0][3]),
+        "+f"(d[1][1][0]), "+f"(d[1][1][1]), "+f"(d[1][1][2]), "+f"(d[1][1][3]),
+        "+f"(d[1][2][0]), "+f"(d[1][2][1]), "+f"(d[1][2][2]), "+f"(d[1][2][3]),
+        "+f"(d[1][3][0]), "+f"(d[1][3][1]), "+f"(d[1][3][2]), "+f"(d[1][3][3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+}
+
+// part = the split slice's A B on the tensor cores: warpgroup w takes
+// the tile's columns 64 w .. + 63, its warp v rows 16 v .. + 15 of A.
+// Three TF32 passes a k step (the small terms first), issued async: the
+// caller overlaps them and waits.
+__device__ __forceinline__ void mma_slice(float (&part)[2][4][4],
+                                          const float2* spA, const float* hi,
+                                          const float* lo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, v = warp & 3, wg = warp >> 2;
+  uint32_t ah[kBK / 8][4], al[kBK / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < kBK / 8; ++ks) {
+    const float2* p = spA + (16 * v + g) * kSp + 8 * ks + t;
+    const float2 x[4] = {p[0], p[8 * kSp], p[4], p[8 * kSp + 4]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[ks][e] = __float_as_uint(x[e].x);
+      al[ks][e] = __float_as_uint(x[e].y);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kBK / 8; ++ks) {
+    // k step ks: core matrices 2 ks and 2 ks + 1 along k; the group's 8
+    // along n
+    const int at = (2 * ks * (kBN / 8) + 8 * wg) * 32;
+    const uint64_t dh = core_desc(hi + at), dl = core_desc(lo + at);
+    wgmma_tf32(part, al[ks][0], al[ks][1], al[ks][2], al[ks][3], dh, ks > 0);
+    wgmma_tf32(part, ah[ks][0], ah[ks][1], ah[ks][2], ah[ks][3], dl, 1);
+    wgmma_tf32(part, ah[ks][0], ah[ks][1], ah[ks][2], ah[ks][3], dh, 1);
+  }
+  wgmma_commit();
+}
+
+// acc += A[m0 .. m0 + 64, kbeg .. kend) B[kbeg .. kend, n0 .. n0 + 128):
+// A (m, k) is stored row m (with TA: stored row k), B (k, n) stored row k
+// (with TB: stored row n).  Slices of kBK past kend read what o holds
+// there, which the callers keep zero on one side.  Leaves the shared
+// memory free.
+template <bool TA, bool TB>
+__device__ __forceinline__ void mainloop(Smem& sm, float (&acc)[2][4][4],
+                                      const Opnd& A, const Opnd& B, int m0,
+                                      int n0, int kbeg, int kend) {
+  const int nk = (kend - kbeg + kBK - 1) / kBK;
+  if (nk <= 0) return;
+  auto issue = [&](int j) {
+    if (j < nk) {
+      const int k0 = kbeg + j * kBK, st = j % kNS;
+      if (TA) stage<kBK, kBM>(sm.rawA[st], A, k0, m0);
+      else stage<kBM, kBK>(sm.rawA[st], A, m0, k0);
+      if (TB) stage<kBN, kBK>(sm.rawB[st], B, n0, k0);
+      else stage<kBK, kBN>(sm.rawB[st], B, k0, n0);
+    }
+    tryage::cp_async_commit();
+  };
+  // part u of splitting slice j: A's two parts, then B's four
+  auto split_slice = [&](int j, int u) {
+    const int k0 = kbeg + j * kBK, st = j % kNS;
+    if (u < 2)
+      split_part<kBM, TA>(sm.spA[j & 1], sm.rawA[st], A, m0, k0, u);
+    else
+      split_part_b<!TB>(sm.spBh[j & 1], sm.spBl[j & 1], sm.rawB[st], u - 2);
+  };
+  auto add = [&](const float (&x)[2][4][4]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][jj][e] += x[i][jj][e];
+  };
+  issue(0);
+  issue(1);
+  tryage::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 6; ++u) split_slice(0, u);
+  fence_async_smem();
+  issue(2);
+  float part[2][4][4];  // a fresh accumulator a slice, added in f32
+  for (int j = 0; j < nk; ++j) {
+    // slice j + 1 has landed, slice j is split, slice j - 1's products and
+    // split are done (their buffers free)
+    tryage::cp_async_wait<1>();
+    __syncthreads();
+    mma_slice(part, sm.spA[j & 1], sm.spBh[j & 1], sm.spBl[j & 1]);
+    if (j + 1 < nk) {  // beside the tensor cores
+#pragma unroll
+      for (int u = 0; u < 6; ++u) split_slice(j + 1, u);
+      fence_async_smem();
+    }
+    issue(j + 3);
+    wgmma_wait();
+    add(part);
+  }
+  tryage::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// For each accumulator element: f(row, col, i, j, e) with row < 64, col <
+// 128 in the block tile (e & 1: the odd column of a pair): wgmma's
+// accumulator layout, column block 4 i + j of 8 in the warpgroup's 64.
+template <class F>
+__device__ __forceinline__ void for_acc(F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, v = warp & 3, wg = warp >> 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f(16 * v + g + 8 * (e >> 1),
+          64 * wg + 8 * (4 * i + j) + 2 * t + (e & 1), i, j, e);
+}
+
+// Per tile row (thread tid < 64 gets row tid's), the sum over the tile's
+// columns of x(row, col, value), in a fixed order.
+template <class X>
+__device__ __forceinline__ float tile_row_sums(const float (&acc)[2][4][4],
+                                               float* red, X x) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, v = warp & 3, wg = warp >> 2;
+  float s[2] = {0.0f, 0.0f};
+  for_acc([&](int row, int col, int i, int j, int e) {
+    s[e >> 1] += x(row, col, acc[i][j][e]);
+  });
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float y = s[hf];
+    y += __shfl_xor_sync(kFull, y, 1);
+    y += __shfl_xor_sync(kFull, y, 2);
+    if (t == 0) red[wg * kBM + 16 * v + g + 8 * hf] = y;
+  }
+  __syncthreads();
+  float out = 0.0f;
+  if (threadIdx.x < kBM) out = red[threadIdx.x] + red[kBM + threadIdx.x];
+  __syncthreads();
+  return out;
+}
 
 }  // namespace
 
-// out[z] (M x N) = beta cin[z] + A[z] B[z]: A (m, k) is a[m][k], or with
-// TA a[k][m]; B (k, n) is b[k][n], or with TB b[n][k].  A block per 64 x
-// 64 output tile of one batch.
-template <bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_gemm(GemmArgs g) {
-  __shared__ __align__(16) float as[kBM * kPg], bs[kBN * kPg];
-  const int z = blockIdx.z, bh = z / g.nzc, c = z - bh * g.nzc;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const float* A = g.a.at(bh, c, g.H);
-  const float* Bm = g.b.at(bh, c, g.H);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // 16 rows, 32 columns a warp
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+// ------------------------------------------------------------------ 1. prep
 
-  for (int k0 = 0; k0 < g.K; k0 += kBKg) {
-    // the tiles as [m][k] and [n][k], each read along its stored rows
-    for (int i = tid; i < kBM * kBKg; i += kThreads) {
-      const int m = TA ? i % kBM : i / kBKg, kk = TA ? i / kBM : i % kBKg;
-      const int gm = m0 + m, gk = k0 + kk;
-      float x = 0.0f;
-      if (gm < g.M && gk < g.K)
-        x = TA ? A[(size_t)gk * g.a.ld + gm] : A[(size_t)gm * g.a.ld + gk];
-      as[m * kPg + kk] = x;
+// Per step of kPrep steps of a row: g, M (f64), a, w, the floor e^{-m_t},
+// dh . h and q . n; per chunk that starts here: decay and kappa.
+__global__ void __launch_bounds__(kThreads) mlstm_bwd_prep(Args a) {
+  __shared__ double tmp[32];
+  // M and F over steps t0 - kStateL .. t0 + kPrep + kStateL - 1
+  __shared__ double winM[kPrep + 2 * kStateL], winF[kPrep + 2 * kStateL];
+  __shared__ double tF[kPrep], tG[kPrep], tM[kPrep];
+  const int t0 = blockIdx.x * kPrep, bh = blockIdx.y;
+  const int b = bh / a.H, hh = bh - b * a.H, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, S = a.S, L = a.L, nc = a.nc;
+  const float* ib = a.ig + (size_t)b * S * a.H + hh;  // stride H a step
+  const float* fb = a.fg + (size_t)b * S * a.H + hh;
+  const double m0 = a.m0[bh];
+  const int seg = (S + kThreads - 1) / kThreads;
+  const int u0 = min(S, tid * seg), u1 = min(S, u0 + seg);
+  const int wbase = t0 - kStateL;
+  double sum = 0.0;
+  for (int u = u0; u < u1; ++u) sum += (double)log_sigmoid(fb[(size_t)u * a.H]);
+  const double Fbase = block_excl<false>(sum, tmp);
+  double F = Fbase, mx = -INFINITY;
+  for (int u = u0; u < u1; ++u) {
+    F += (double)log_sigmoid(fb[(size_t)u * a.H]);
+    mx = fmax(mx, (double)ib[(size_t)u * a.H] - F);
+  }
+  const double Mbase = fmax(m0, block_excl<true>(mx, tmp));
+  F = Fbase;
+  double M = Mbase;
+  for (int u = u0; u < u1; ++u) {  // the same sums again, kept where needed
+    F += (double)log_sigmoid(fb[(size_t)u * a.H]);
+    const double gu = (double)ib[(size_t)u * a.H] - F;
+    M = fmax(M, gu);
+    if (u >= t0 && u < t0 + kPrep)
+      tF[u - t0] = F, tG[u - t0] = gu, tM[u - t0] = M;
+    if (u >= wbase && u < wbase + kPrep + 2 * kStateL)
+      winM[u - wbase] = M, winF[u - wbase] = F;
+  }
+  __syncthreads();
+  if (tid < kPrep && t0 + tid < S) {
+    const int t = t0 + tid, c = t / L, c0 = c * L, e = c0 + L - 1;
+    const size_t at = (size_t)bh * S + t;
+    // with chunks (L <= kStateL) the chunk's ends lie in the window
+    const double Mp = c0 == 0 ? m0 : winM[c0 - 1 - wbase];
+    const double Fp = c0 == 0 ? 0.0 : winF[c0 - 1 - wbase];
+    const double Mt = tM[tid], gt = tG[tid];
+    a.gg[at] = gt;
+    a.Mg[at] = Mt;
+    a.a[at] = expf((float)(Mp - Mt));
+    a.lo[at] = expf((float)(-(tF[tid] + Mt)));
+    a.w[at] = nc > 1 ? expf((float)(gt - winM[e - wbase])) : 0.0f;
+    if (t == c0) {
+      a.decay[(size_t)bh * nc + c] =
+          nc > 1 ? expf((float)(Mp - winM[e - wbase])) : 0.0f;
+      a.kappa[(size_t)bh * nc + c] =
+          expf((float)((double)a.mst[(size_t)bh * nc + c] - Fp - Mp));
     }
-    for (int i = tid; i < kBN * kBKg; i += kThreads) {
-      const int n = TB ? i / kBKg : i % kBN, kk = TB ? i % kBKg : i / kBN;
-      const int gn = n0 + n, gk = k0 + kk;
-      float x = 0.0f;
-      if (gn < g.N && gk < g.K)
-        x = TB ? Bm[(size_t)gn * g.b.ld + gk] : Bm[(size_t)gk * g.b.ld + gn];
-      bs[n * kPg + kk] = x;
-    }
-    __syncthreads();
-    // a fresh accumulator per slice, added in f32: the tensor cores'
-    // accumulation rounds toward zero, so one chain over all of K would
-    // carry a bias
-    float part[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < kBKg / 8; ++ks) {
-      const float* ar = as + (16 * wm + gq) * kPg + 8 * ks + t;
-      const Split a[4] = {split_tf32(ar[0]), split_tf32(ar[8 * kPg]),
-                          split_tf32(ar[4]), split_tf32(ar[8 * kPg + 4])};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* br = bs + (32 * wn + 8 * j + gq) * kPg + 8 * ks + t;
-        const Split b[2] = {split_tf32(br[0]), split_tf32(br[4])};
-        tryage::mma_3xtf32(part[j], a, b);
+  }
+  // dh . h and, where the chunk reads a state, q . n: a warp a step
+  for (int j = 0; j < kPrep / 8; ++j) {
+    const int t = t0 + warp + 8 * j;
+    if (t >= S) break;
+    const int c = t / L;
+    const bool has_state = c > 0 || !a.zero_state;
+    const size_t row = (((size_t)b * S + t) * a.H + hh) * a.dh;
+    const float* n = a.nst + ((size_t)bh * nc + c) * a.dh;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int d = 4 * lane; d < a.dh; d += 128) {
+      const float4 x = *reinterpret_cast<const float4*>(a.dh_ + row + d);
+      const float4 y = *reinterpret_cast<const float4*>(a.h + row + d);
+      s1 += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+      if (has_state) {
+        const float4 qq = *reinterpret_cast<const float4*>(a.q + row + d);
+        const float4 nn = *reinterpret_cast<const float4*>(n + d);
+        s2 += qq.x * nn.x + qq.y * nn.y + qq.z * nn.z + qq.w * nn.w;
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-    __syncthreads();  // the tiles are restaged
-  }
-
-  float* out = const_cast<float*>(g.out.at(bh, c, g.H));
-  const float* cin = g.cin.p != nullptr ? g.cin.at(bh, c, g.H) : nullptr;
-  const float beta = cin != nullptr ? g.beta[bh * g.beta_bh] : 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + 16 * wm + gq + 8 * (e >> 1);
-      const int n = n0 + 32 * wn + 8 * j + 2 * t + (e & 1);
-      if (m < g.M && n < g.N) {
-        float x = acc[j][e];
-        if (cin != nullptr) x = fmaf(beta, cin[(size_t)m * g.cin.ld + n], x);
-        out[(size_t)m * g.out.ld + n] = x;
-      }
-    }
-}
-
-// The gates of each (row, chunk), as the forward's launch 1 scans them:
-// one warp walks the row's earlier chunks for m at this chunk's start,
-// then F, i, m_t of its own; a, w and decay follow.  Lane holds steps
-// 2 lane and 2 lane + 1.
-__global__ void __launch_bounds__(32)
-mlstm_bwd_gates(const float* __restrict__ ig, const float* __restrict__ fg,
-                const float* __restrict__ m0, float* __restrict__ gates, int S,
-                int H, int L) {
-  const int c = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
-  const int b = bh / H, hh = bh - b * H, lane = threadIdx.x;
-  const float* ib = ig + (size_t)b * S * H + hh;  // stride H per step
-  const float* fb = fg + (size_t)b * S * H + hh;
-  float* gz = gates + ((size_t)bh * nc + c) * kGB;
-  const int ta = 2 * lane, tb = ta + 1;
-  float m = m0[bh], Fa = 0.0f, Fb = 0.0f, ia = 0.0f, ibb = 0.0f, mta = 0.0f,
-        mtb = 0.0f;
-  for (int cc = 0; cc <= c; ++cc) {
-    const size_t s0 = (size_t)cc * L;
-    const float fa = ta < L ? log_sigmoid(fb[(s0 + ta) * H]) : 0.0f;
-    const float fbb = tb < L ? log_sigmoid(fb[(s0 + tb) * H]) : 0.0f;
-    ia = ta < L ? ib[(s0 + ta) * H] : 0.0f;
-    ibb = tb < L ? ib[(s0 + tb) * H] : 0.0f;
-    float incl = fa + fbb;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += y;
-    }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 0.0f;
-    Fa = excl + fa;
-    Fb = Fa + fbb;
-    const float ga = ta < L ? ia - Fa : -INFINITY;
-    const float gb = tb < L ? ibb - Fb : -INFINITY;
-    float mx = fmaxf(ga, gb);
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(kFull, mx, off);
-      if (lane >= off) mx = fmaxf(mx, y);
-    }
-    float exm = __shfl_up_sync(kFull, mx, 1);
-    if (lane == 0) exm = -INFINITY;
-    const float Ga = fmaxf(exm, ga), Gb = fmaxf(Ga, gb);
-    mta = Fa + fmaxf(m, Ga);
-    mtb = Fb + fmaxf(m, Gb);
-    if (cc < c) m = __shfl_sync(kFull, ((L - 1) & 1) ? mtb : mta, (L - 1) >> 1);
-  }
-  const int last = (L - 1) >> 1;
-  const float F_last = __shfl_sync(kFull, ((L - 1) & 1) ? Fb : Fa, last);
-  const float m_last = __shfl_sync(kFull, ((L - 1) & 1) ? mtb : mta, last);
-  const float Fs[2] = {Fa, Fb}, is[2] = {ia, ibb}, ms[2] = {mta, mtb};
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int s = ta + e;
-    if (s >= kL) continue;
-    const bool in = s < L;
-    gz[kF + s] = in ? Fs[e] : 0.0f;
-    gz[kI + s] = in ? is[e] : 0.0f;
-    gz[kMT + s] = in ? ms[e] : 0.0f;
-    gz[kA + s] = in ? expf(Fs[e] + m - ms[e]) : 0.0f;
-    gz[kW + s] = in ? expf(F_last - Fs[e] + is[e] - m_last) : 0.0f;
-  }
-  if (lane == 0) {
-    gz[kDec] = expf(F_last + m - m_last);
-    gz[kMp] = m;
-  }
-}
-
-// Per step of each (row, chunk): den_t from Sm (q . k, unscaled) and
-// q . n, the denominator's factor r = 1 / max(|den|, e^{-m_t}) and
-// dden_t into step [2]; dnum_t = dh_t r and aq_t = a_t q~_t (B, H, S, dh).
-// A warp per step.
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_den(const float* __restrict__ q, const float* __restrict__ h,
-              const float* __restrict__ dh_, const float* __restrict__ nst,
-              const float* __restrict__ gates, const float* __restrict__ Sm,
-              float* __restrict__ step, float* __restrict__ dnum,
-              float* __restrict__ aq, int S, int H, int dh, int L,
-              float scale) {
-  const int z = blockIdx.x, nc = S / L, bh = z / nc, c = z - bh * nc;
-  const int b = bh / H, hh = bh - b * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* gz = gates + (size_t)z * kGB;
-  const float* n = nst + (size_t)z * dh;
-  const float* sz = Sm + (size_t)z * L * L;
-  for (int t = warp; t < L; t += kThreads / 32) {
-    const size_t row = (((size_t)b * S + c * L + t) * H + hh) * dh;
-    const size_t out = ((size_t)bh * S + c * L + t) * dh;
-    float qn = 0.0f, dhh = 0.0f;
-    for (int d = lane; d < dh; d += 32) {
-      qn = fmaf(q[row + d], n[d], qn);
-      dhh = fmaf(dh_[row + d], h[row + d], dhh);
-    }
-    const float Ft = gz[kF + t], mt = gz[kMT + t], at = gz[kA + t];
-    float intra = 0.0f;
-    for (int s = lane; s <= t; s += 32)
-      intra += expf((Ft - mt) + (gz[kI + s] - gz[kF + s])) * scale *
-               sz[t * L + s];
-    qn = warp_sum(qn);
-    dhh = warp_sum(dhh);
-    intra = warp_sum(intra);
-    const float den = at * scale * qn + intra, lo = expf(-mt);
-    const float r = 1.0f / fmaxf(fabsf(den), lo);
-    const float dden = fabsf(den) > lo ? -copysignf(1.0f, den) * dhh * r
-                                       : 0.0f;
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
     if (lane == 0) {
-      step[2 * ((size_t)z * L + t)] = r;
-      step[2 * ((size_t)z * L + t) + 1] = dden;
-    }
-    for (int d = lane; d < dh; d += 32) {
-      dnum[out + d] = dh_[row + d] * r;
-      aq[out + d] = at * scale * q[row + d];
+      a.dhh[(size_t)bh * S + t] = s1;
+      a.qn[(size_t)bh * S + t] = s2;
     }
   }
 }
 
-// dS~ = (dP + dden_t) D scale and the masked P = D scale (q . k) of each
-// (row, chunk), [t][s], zero past the diagonal; and the log-weights'
-// gradient (dP + dden_t) P summed over s (rows) and over t (columns).
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_ds(const float* __restrict__ gates, const float* __restrict__ step,
-             const float* __restrict__ Sm, const float* __restrict__ dPm,
-             float* __restrict__ dSt, float* __restrict__ Pm,
-             float* __restrict__ ggr, int L, float scale) {
-  __shared__ float lg[kL * (kL + 1)];
-  __shared__ float Fm[kL], iF[kL], dd[kL];
-  const int z = blockIdx.x, tid = threadIdx.x;
-  const float* gz = gates + (size_t)z * kGB;
-  const size_t base = (size_t)z * L * L;
-  if (tid < L) {
-    Fm[tid] = gz[kF + tid] - gz[kMT + tid];
-    iF[tid] = gz[kI + tid] - gz[kF + tid];
-    dd[tid] = step[2 * ((size_t)z * L + tid) + 1];
+// ------------------------------------------------------------ 2. S and dP'
+
+// S = q k^T (blockIdx.y 0) or dP' = dh v^T (1) on one 64 x 128 tile of a
+// chunk: S becomes P = D S / sqrt(dh) with its row sums over the tile.
+__global__ void __launch_bounds__(kThreads, 1) mlstm_bwd_mma_sdp(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int c = blockIdx.x / a.tiles, job = blockIdx.y, bh = blockIdx.z;
+  int ti, sj;
+  tile_of(blockIdx.x - c * a.tiles, ti, sj);
+  const int t0 = ti * kBM, s0 = sj * kBN;
+  float acc[2][4][4];
+  for_acc([&](int, int, int i, int j, int e) { acc[i][j][e] = 0.0f; });
+  mainloop<false, true>(sm, acc, rows_op(job ? a.dh_ : a.q, a, bh, c),
+                        rows_op(job ? a.v : a.k, a, bh, c), t0, s0, 0, a.dh);
+  const size_t st0 = (size_t)bh * a.S + (size_t)c * a.L;
+  float* out = (job ? a.dP : a.P) + ((size_t)bh * a.nc + c) * a.L * a.LP;
+  if (job == 0) {  // P = D S / sqrt(dh), masked
+    for_acc([&](int row, int col, int i, int j, int e) {
+      const int t = t0 + row, s = s0 + col;
+      float p = 0.0f;
+      if (s <= t && t < a.L)
+        p = expf((float)(a.gg[st0 + s] - a.Mg[st0 + t])) * a.scale *
+            acc[i][j][e];
+      acc[i][j][e] = p;
+    });
+  } else {
+    for_acc([&](int row, int col, int i, int j, int e) {
+      if (s0 + col > t0 + row) acc[i][j][e] = 0.0f;
+    });
   }
-  __syncthreads();
-  for (int i = tid; i < L * L; i += kThreads) {
-    const int t = i / L, s = i - t * L;
-    float ds = 0.0f, p = 0.0f, l = 0.0f;
-    if (s <= t) {
-      const float D = expf(Fm[t] + iF[s]);
-      const float dP = dPm[base + i] + dd[t];
-      p = D * scale * Sm[base + i];
-      ds = dP * D * scale;
-      l = dP * p;
+  for_acc([&](int row, int col, int i, int j, int e) {
+    const int t = t0 + row, s = s0 + col;
+    if (!(e & 1) && t < a.L && s < a.LP)
+      *reinterpret_cast<float2*>(out + (size_t)t * a.LP + s) =
+          make_float2(acc[i][j][e], acc[i][j][e + 1]);
+  });
+  if (job == 0) {
+    const float rs = tile_row_sums(acc, sm.rawA[0],
+                                   [](int, int, float x) { return x; });
+    if (threadIdx.x < kBM && t0 + (int)threadIdx.x < a.L)
+      a.prow[(st0 + t0 + threadIdx.x) * a.ns + sj] = rs;
+  }
+}
+
+// --------------------------------------------------------------- 3. dS~, P'
+
+// On one tile: den, r, dden of its rows (the s-tile 0 block writes them
+// with a r / sqrt(dh), for the products), then dS~ over dP' and P' over
+// P, and the log-weights' gradient (r dP' + dden) P summed per row and
+// per column of the tile.
+__global__ void __launch_bounds__(kThreads) mlstm_bwd_ds(Args a) {
+  __shared__ float r_s[64], dd_s[64];
+  __shared__ double M_s[64], g_s[128];
+  __shared__ float csum[kThreads / 32][128];
+  const int c = blockIdx.x / a.tiles, bh = blockIdx.y, tid = threadIdx.x;
+  int ti, sj;
+  tile_of(blockIdx.x - c * a.tiles, ti, sj);
+  const int t0 = ti * kBM, s0 = sj * kBN, L = a.L, LP = a.LP;
+  const size_t st0 = (size_t)bh * a.S + (size_t)c * L;
+  const bool has_state = c > 0 || !a.zero_state;
+  if (tid < 64) {
+    const int t = t0 + tid;
+    float r = 0.0f, dd = 0.0f;
+    double M = 0.0;
+    if (t < L) {
+      const size_t at = st0 + t;
+      float den = 0.0f;
+      for (int j = 0; j <= (ti >> 1); ++j) den += a.prow[at * a.ns + j];
+      const float as = a.a[at] * a.kappa[(size_t)bh * a.nc + c];
+      if (has_state) den += as * a.scale * a.qn[at];
+      const float lo = a.lo[at];
+      r = 1.0f / fmaxf(fabsf(den), lo);
+      dd = fabsf(den) > lo ? -copysignf(1.0f, den) * a.dhh[at] * r : 0.0f;
+      M = a.Mg[at];
+      if (sj == 0) {
+        a.r[at] = r;
+        a.dd[at] = dd;
+        a.ar[at] = a.scale * a.a[at] * r;
+        a.ars[at] = a.scale * as * r;
+      }
     }
-    dSt[base + i] = ds;
-    Pm[base + i] = p;
-    lg[t * (kL + 1) + s] = l;
+    r_s[tid] = r;
+    dd_s[tid] = dd;
+    M_s[tid] = M;
   }
+  if (tid < 128) g_s[tid] = s0 + tid < L ? a.gg[st0 + s0 + tid] : 0.0;
   __syncthreads();
-  float* gg = ggr + (size_t)z * kGG;
-  if (tid < L) {
+  const int lane = tid & 31, warp = tid >> 5, s = s0 + 4 * lane;
+  float* Pm = a.P + ((size_t)bh * a.nc + c) * L * LP;
+  float* dPm = a.dP + ((size_t)bh * a.nc + c) * L * LP;
+  float cs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 8; ++i) {
+    const int tl = warp + 8 * i, t = t0 + tl;
     float rs = 0.0f;
-    for (int s = 0; s < L; ++s) rs += lg[tid * (kL + 1) + s];
-    gg[kRS + tid] = rs;
-  } else if (tid >= kL && tid < kL + L) {
-    const int s = tid - kL;
-    float cs = 0.0f;
-    for (int t = 0; t < L; ++t) cs += lg[t * (kL + 1) + s];
-    gg[kCS + s] = cs;
+    if (t < L && s < LP) {
+      const size_t at = (size_t)t * LP + s;
+      const float4 p4 = *reinterpret_cast<const float4*>(Pm + at);
+      const float4 x4 = *reinterpret_cast<const float4*>(dPm + at);
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      float ds[4], pp[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[e] = pp[e] = 0.0f;
+        if (s + e <= t) {
+          const float E = expf((float)(g_s[4 * lane + e] - M_s[tl])) * a.scale;
+          const float dPv = r_s[tl] * x[e] + dd_s[tl];
+          const float l = dPv * p[e];
+          ds[e] = dPv * E;
+          pp[e] = r_s[tl] * p[e];
+          rs += l;
+          cs[e] += l;
+        }
+      }
+      *reinterpret_cast<float4*>(dPm + at) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+      *reinterpret_cast<float4*>(Pm + at) =
+          make_float4(pp[0], pp[1], pp[2], pp[3]);
+    }
+    rs = warp_sum(rs);
+    if (lane == 0 && t < L) a.lrow[(st0 + t) * a.ns + sj] = rs;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) csum[warp][4 * lane + e] = cs[e];
+  __syncthreads();
+  if (tid < 128 && s0 + tid < L) {
+    float x = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) x += csum[w][tid];
+    a.lcol[(st0 + s0 + tid) * a.nt + ti] = x;
   }
 }
 
-// The gradient of n after each chunk, in reverse: dn of the last chunk
-// is 0 and dn_{c-1} = decay_c dn_c + sum_t dden_t aq_t; and G of the
-// last chunk zeroed.  A thread per (row, dimension).
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_dn(const float* __restrict__ aq, const float* __restrict__ step,
-             const float* __restrict__ gates, float* __restrict__ dnc,
-             float* __restrict__ G, int S, int dh, int L) {
-  const int nc = S / L, bh = blockIdx.y;
-  float* gl = G + ((size_t)bh * nc + nc - 1) * dh * dh;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-       i < (size_t)dh * dh; i += (size_t)gridDim.x * kThreads)
-    gl[i] = 0.0f;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= dh) return;
-  float acc = 0.0f;
-  dnc[((size_t)bh * nc + nc - 1) * dh + d] = 0.0f;
-  for (int c = nc - 1; c >= 1; --c) {
+// ---------------------------------------------- 4. the state's gradient
+
+// One 64 x 128 tile of G per block, over the chunks in reverse: G of the
+// last chunk is 0, G_{c-1} = decay_c G_c + sum_t (a_t r_t q~_t) dh_t^T; the
+// tile stays in registers and is written for each chunk but the last.
+// Blocks of column tile 0 carry dn over their rows likewise.  Each block
+// writes its part of <G_c, C_c> + <dn_c, n_c> for every chunk.
+__global__ void __launch_bounds__(kThreads, 1) mlstm_bwd_mma_rec(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  __shared__ float red[kThreads / 32];
+  __shared__ float dnq[kThreads / kBM][kBM];
+  const int j0 = blockIdx.x * kBN, i0 = blockIdx.y * kBM, bh = blockIdx.z;
+  const int tid = threadIdx.x, dh = a.dh, nc = a.nc;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int ntile = gridDim.x * gridDim.y;
+  const bool dn_row = blockIdx.x == 0 && tid < kBM && i0 + tid < dh;
+  float acc[2][4][4];
+  for_acc([&](int, int, int i, int j, int e) { acc[i][j][e] = 0.0f; });
+  float dn = 0.0f;
+  for (int c = nc - 1;; --c) {
     const size_t z = (size_t)bh * nc + c;
-    float sum = 0.0f;
-    for (int t = 0; t < L; ++t)
-      sum = fmaf(step[2 * (z * L + t) + 1],
-                 aq[((size_t)bh * S + c * L + t) * dh + d], sum);
-    acc = fmaf(gates[z * kGB + kDec], acc, sum);
-    dnc[(z - 1) * dh + d] = acc;
-  }
-}
-
-// d decay of each (row, chunk): <G, C> + <dn, n>, in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_dot(const float* __restrict__ G, const float* __restrict__ Cst,
-              const float* __restrict__ dnc, const float* __restrict__ nst,
-              float* __restrict__ ggr, int dh) {
-  __shared__ float red[kThreads];
-  const int z = blockIdx.x, tid = threadIdx.x;
-  const size_t n2 = (size_t)dh * dh;
-  const float* gz = G + (size_t)z * n2;
-  const float* cz = Cst + (size_t)z * n2;
-  float sum = 0.0f;
-  for (size_t i = tid; i < n2; i += kThreads) sum = fmaf(gz[i], cz[i], sum);
-  for (int d = tid; d < dh; d += kThreads)
-    sum = fmaf(dnc[(size_t)z * dh + d], nst[(size_t)z * dh + d], sum);
-  red[tid] = sum;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (tid < w) red[tid] += red[tid + w];
-    __syncthreads();
-  }
-  if (tid == 0) ggr[(size_t)z * kGG + kDD] = red[0];
-}
-
-// dq, dk, dv of each step from the products' parts, into the model
-// layout, and da_t, dw_s for the gates.  A warp per step.
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_out(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ nst, const float* __restrict__ dnc,
-              const float* __restrict__ gates, const float* __restrict__ step,
-              const float* __restrict__ u, const float* __restrict__ x,
-              const float* __restrict__ y, const float* __restrict__ dSq,
-              const float* __restrict__ dSk, const float* __restrict__ Pd,
-              float* __restrict__ dq, float* __restrict__ dk,
-              float* __restrict__ dv, float* __restrict__ ggr, int S, int H,
-              int dh, int L, float scale) {
-  const int z = blockIdx.x, nc = S / L, bh = z / nc, c = z - bh * nc;
-  const int b = bh / H, hh = bh - b * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* gz = gates + (size_t)z * kGB;
-  const float* n = nst + (size_t)z * dh;
-  const float* dn = dnc + (size_t)z * dh;
-  float* gg = ggr + (size_t)z * kGG;
-  for (int t = warp; t < L; t += kThreads / 32) {
-    const size_t row = (((size_t)b * S + c * L + t) * H + hh) * dh;
-    const size_t w = ((size_t)bh * S + c * L + t) * dh;
-    const float at = gz[kA + t], wt = gz[kW + t];
-    const float dd = step[2 * ((size_t)z * L + t) + 1];
-    float sa = 0.0f, sw = 0.0f;
-    for (int d = lane; d < dh; d += 32) {
-      const float qc = u[w + d] + dd * n[d];  // C dnum_t + dden_t n
-      const float kc = x[w + d] + dn[d];      // G v_t + dn
-      dq[row + d] = scale * at * qc + dSq[w + d];
-      dk[row + d] = wt * kc + dSk[w + d];
-      dv[row + d] = wt * y[w + d] + Pd[w + d];
-      sa = fmaf(q[row + d], qc, sa);
-      sw = fmaf(k[row + d], kc, sw);
+    float part = 0.0f;
+    if (c < nc - 1 && (c > 0 || !a.zero_state)) {
+      const float* C = a.Cst + z * dh * dh;
+      for_acc([&](int row, int col, int i, int j, int e) {
+        const int ii = i0 + row, jj = j0 + col;
+        if (ii < dh && jj < dh) part += acc[i][j][e] * C[(size_t)ii * dh + jj];
+      });
+      if (dn_row) part += dn * a.nst[z * dh + i0 + tid];
     }
-    sa = warp_sum(sa);
-    sw = warp_sum(sw);
-    if (lane == 0) {
-      gg[kDA + t] = scale * sa;
-      gg[kDW + t] = sw;
+    part = block_sum(part, red);
+    if (tid == 0) a.ddp[z * ntile + tile] = part;
+    if (c == 0) break;
+    const float decay = a.decay[z];
+    for_acc([&](int, int, int i, int j, int e) { acc[i][j][e] *= decay; });
+    const size_t st0 = (size_t)bh * a.S + (size_t)c * a.L;
+    mainloop<true, false>(sm, acc, rows_op(a.q, a, bh, c, a.ar + st0),
+                          rows_op(a.dh_, a, bh, c), i0, j0, 0, a.L);
+    float* Gp = a.G + (z - 1) * dh * dh;
+    for_acc([&](int row, int col, int i, int j, int e) {
+      const int ii = i0 + row, jj = j0 + col;
+      if (!(e & 1) && ii < dh && jj < dh)
+        *reinterpret_cast<float2*>(Gp + (size_t)ii * dh + jj) =
+            make_float2(acc[i][j][e], acc[i][j][e + 1]);
+    });
+    if (blockIdx.x == 0) {  // the block's quarters take every fourth step
+      const int i = tid % kBM, qt = tid / kBM;
+      float s = 0.0f;
+      if (i0 + i < dh) {
+#pragma unroll 4
+        for (int t = qt; t < a.L; t += kThreads / kBM)
+          s += a.dd[st0 + t] * (a.scale * a.a[st0 + t]) *
+               a.q[model_at(a, bh, c, t, i0 + i)];
+      }
+      dnq[qt][i] = s;
+      __syncthreads();
+      if (dn_row) {
+        dn = decay * dn +
+             ((dnq[0][tid] + dnq[1][tid]) + (dnq[2][tid] + dnq[3][tid]));
+        a.dn[(z - 1) * dh + i0 + tid] = dn;
+      }
+      __syncthreads();
     }
   }
 }
 
-// di and df of each (row, chunk) from the gradient sums: dF_t, then the
-// reverse sum over the chunk for dlogsigmoid(f), times sigmoid(-f).
-__global__ void __launch_bounds__(kL)
-mlstm_bwd_gate_grads(const float* __restrict__ fg,
-                     const float* __restrict__ gates,
-                     const float* __restrict__ ggr, float* __restrict__ di,
-                     float* __restrict__ df, int S, int H, int L) {
-  __shared__ float dF[kL], dwv[kL];
-  const int z = blockIdx.x, nc = S / L, bh = z / nc, c = z - bh * nc;
-  const int b = bh / H, hh = bh - b * H, t = threadIdx.x;
-  const float* gz = gates + (size_t)z * kGB;
-  const float* gg = ggr + (size_t)z * kGG;
-  const size_t at = ((size_t)b * S + c * L + t) * H + hh;
-  if (t < L) {
-    const float ww = gg[kDW + t] * gz[kW + t];
-    dwv[t] = ww;
-    dF[t] = gg[kRS + t] - gg[kCS + t] + gg[kDA + t] * gz[kA + t] - ww;
-    di[at] = gg[kCS + t] + ww;
-  }
-  __syncthreads();
-  if (t == 0) {  // F_L's terms, then the reverse sum, in order
-    float tail = gg[kDD] * gz[kDec];
-    for (int s = 0; s < L; ++s) tail += dwv[s];
-    dF[L - 1] += tail;
-    float run = 0.0f;
-    for (int s = L - 1; s >= 0; --s) {
-      run += dF[s];
-      dF[s] = run;
+// ------------------------------------------------------- 5. dq, dk, dv
+
+// One 64 x 128 tile of dq (blockIdx.y 0), dk (1) or dv (2) of a chunk.
+__global__ void __launch_bounds__(kThreads, 1) mlstm_bwd_mma_out(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int nm = (a.L + kBM - 1) / kBM, per = nm * a.nd;
+  const int c = blockIdx.x / per, rem = blockIdx.x - c * per;
+  const int mi = rem / a.nd, dj = rem - mi * a.nd;
+  const int job = blockIdx.y, bh = blockIdx.z, dh = a.dh, L = a.L;
+  const int m0 = mi * kBM, n0 = dj * kBN;
+  const bool has_state = c > 0 || !a.zero_state, has_G = c < a.nc - 1;
+  const size_t z = (size_t)bh * a.nc + c;
+  const size_t st0 = (size_t)bh * a.S + (size_t)c * L;
+  const Opnd mat = {(job == 2 ? a.P : a.dP) + z * L * a.LP, a.LP, L, a.LP,
+                    nullptr};
+  float acc[2][4][4];
+  for_acc([&](int, int, int i, int j, int e) { acc[i][j][e] = 0.0f; });
+  float* red = sm.rawA[0];
+  if (job == 0) {
+    if (has_state) {  // kappa a_t r_t / sqrt(dh) C dh_t, and its dot with q_t
+      const Opnd C = {a.Cst + z * dh * dh, dh, dh, dh, nullptr};
+      mainloop<false, true>(sm, acc, rows_op(a.dh_, a, bh, c, a.ars + st0), C,
+                            m0, n0, 0, dh);
+      const float x = tile_row_sums(acc, red, [&](int row, int col, float y) {
+        const int t = m0 + row, d = n0 + col;
+        return t < L && d < dh ? a.q[model_at(a, bh, c, t, d)] * y : 0.0f;
+      });
+      if (threadIdx.x < kBM && m0 + (int)threadIdx.x < L)
+        a.dap[(st0 + m0 + threadIdx.x) * a.nd + dj] = x;
     }
+    mainloop<false, false>(sm, acc, mat, rows_op(a.k, a, bh, c), m0, n0, 0,
+                           min(m0 + kBM, L));
+  } else if (job == 1) {
+    if (has_G) {  // w_s G v_s
+      const Opnd G = {a.G + z * dh * dh, dh, dh, dh, nullptr};
+      mainloop<false, true>(sm, acc, rows_op(a.v, a, bh, c, a.w + st0), G, m0,
+                            n0, 0, dh);
+      const float x = tile_row_sums(acc, red, [&](int row, int col, float) {
+        const int s = m0 + row, d = n0 + col;
+        return s < L && d < dh
+                   ? a.k[model_at(a, bh, c, s, d)] * a.dn[z * dh + d]
+                   : 0.0f;
+      });
+      if (threadIdx.x < kBM && m0 + (int)threadIdx.x < L)
+        a.dwp[(st0 + m0 + threadIdx.x) * a.nd + dj] = x;
+    }
+    mainloop<true, false>(sm, acc, mat, rows_op(a.q, a, bh, c), m0, n0, m0, L);
+  } else {
+    if (has_G) {  // w_s G^T k_s, and its dot with v_s
+      const Opnd G = {a.G + z * dh * dh, dh, dh, dh, nullptr};
+      mainloop<false, false>(sm, acc, rows_op(a.k, a, bh, c, a.w + st0), G, m0,
+                             n0, 0, dh);
+      const float x = tile_row_sums(acc, red, [&](int row, int col, float y) {
+        const int s = m0 + row, d = n0 + col;
+        return s < L && d < dh ? a.v[model_at(a, bh, c, s, d)] * y : 0.0f;
+      });
+      if (threadIdx.x < kBM && m0 + (int)threadIdx.x < L)
+        a.dw2p[(st0 + m0 + threadIdx.x) * a.nd + dj] = x;
+    }
+    mainloop<true, false>(sm, acc, mat, rows_op(a.dh_, a, bh, c), m0, n0, m0,
+                          L);
+  }
+  float* out = job == 0 ? a.dq : job == 1 ? a.dk : a.dv;
+  const float kap = a.kappa[z];
+  for_acc([&](int row, int col, int i, int j, int e) {
+    const int t = m0 + row, d = n0 + col;
+    if ((e & 1) || t >= L || d >= dh) return;
+    float x0 = acc[i][j][e], x1 = acc[i][j][e + 1];
+    if (job == 0 && has_state) {
+      const float f = a.scale * a.a[st0 + t] * kap * a.dd[st0 + t];
+      x0 += f * a.nst[z * dh + d];
+      x1 += f * a.nst[z * dh + d + 1];
+    } else if (job == 1 && has_G) {
+      const float f = a.w[st0 + t];
+      x0 += f * a.dn[z * dh + d];
+      x1 += f * a.dn[z * dh + d + 1];
+    }
+    *reinterpret_cast<float2*>(out + model_at(a, bh, c, t, d)) =
+        make_float2(x0, x1);
+  });
+}
+
+// ------------------------------------------------------------ 6. di, df
+
+// di and df of one (row, chunk) from the sums: dF_t, then the reverse sum
+// over the chunk for dlogsigmoid(f), times sigmoid(-f).  A thread holds a
+// run of consecutive steps.
+__global__ void __launch_bounds__(kThreads) mlstm_bwd_gate_grads(Args a) {
+  __shared__ float dF[kMaxL];
+  __shared__ float tot[kThreads];
+  __shared__ float red[kThreads / 32];
+  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x, L = a.L;
+  const int b = bh / a.H, hh = bh - b * a.H;
+  const size_t z = (size_t)bh * a.nc + c;
+  const size_t st0 = (size_t)bh * a.S + (size_t)c * L;
+  const bool has_state = c > 0 || !a.zero_state, has_G = c < a.nc - 1;
+  const float kap = a.kappa[z];
+  const int seg = (L + kThreads - 1) / kThreads;
+  const int u0 = min(L, tid * seg), u1 = min(L, u0 + seg);
+  float wsum = 0.0f;
+  for (int t = u0; t < u1; ++t) {
+    const size_t at = st0 + t;
+    float rs = 0.0f, cs = 0.0f, da = 0.0f, ww = 0.0f;
+    for (int j = 0; j <= ((t >> 6) >> 1); ++j) rs += a.lrow[at * a.ns + j];
+    for (int j = 2 * (t >> 7); j < a.nt; ++j) cs += a.lcol[at * a.nt + j];
+    if (has_state) {
+      for (int j = 0; j < a.nd; ++j) da += a.dap[at * a.nd + j];
+      da += a.scale * a.a[at] * kap * a.dd[at] * a.qn[at];
+    }
+    if (has_G) {
+      float x = 0.0f, y = 0.0f;
+      for (int j = 0; j < a.nd; ++j) {
+        x += a.dw2p[at * a.nd + j];
+        y += a.dwp[at * a.nd + j];
+      }
+      ww = x + a.w[at] * y;
+    }
+    dF[t] = rs - cs + da - ww;
+    a.di[((size_t)b * a.S + (size_t)c * L + t) * a.H + hh] = cs + ww;
+    wsum += ww;
+  }
+  wsum = block_sum(wsum, red);
+  if (tid == 0) {  // F at the chunk's end: the decay's and the w's terms
+    float dd = 0.0f;
+    if (has_G) {
+      const int ntile = a.nd * a.ni;
+      for (int j = 0; j < ntile; ++j) dd += a.ddp[z * ntile + j];
+    }
+    dF[L - 1] += kap * dd * a.decay[z] + wsum;
   }
   __syncthreads();
-  if (t < L) df[at] = dF[t] / (1.0f + expf(fg[at]));
+  float run = 0.0f;
+  for (int t = u1 - 1; t >= u0; --t) run += dF[t];
+  tot[tid] = run;
+  __syncthreads();
+  run = 0.0f;
+  for (int j = kThreads - 1; j > tid; --j) run += tot[j];
+  for (int t = u1 - 1; t >= u0; --t) {
+    run += dF[t];
+    const size_t at = ((size_t)b * a.S + (size_t)c * L + t) * a.H + hh;
+    a.df[at] = run / (1.0f + expf(a.fg[at]));
+  }
 }
 
 namespace {
 
-Op op(const float* p, long long sb, long long sh, long long sc, int ld) {
-  return Op{p, sb, sh, sc, ld};
-}
-
-template <bool TA, bool TB>
-cudaError_t gemm(const GemmArgs& g, int nz, cudaStream_t st) {
-  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, nz);
-  mlstm_bwd_gemm<TA, TB><<<grid, kThreads, 0, st>>>(g);
-  return cudaGetLastError();
-}
-
 size_t up4(size_t n) { return (n + 3) / 4 * 4; }
 
-// The workspace's parts, in floats, in order.
+int tiles_per_chunk(int L) {
+  int n = 0;
+  for (int ti = 0; ti * kBM < L; ++ti) n += (ti >> 1) + 1;
+  return n;
+}
+
+// The workspace's parts, in floats, in order (f64 parts take two floats).
 struct Work {
-  size_t gates, step, ggr, Sm, dPm, dSt, Pm, dnum, aq, u, x, y, dSq, dSk, Pd,
-      dnc, G, total;
+  size_t gg, Mg, a, w, lo, dhh, qn, r, dd, ar, ars, decay, kappa, P, dP, prow,
+      lrow, lcol, dap, dwp, dw2p, ddp, dn, G, total;
+  int nc, LP, nt, ns, nd, ni;
   Work(int B, int S, int H, int dh, int L) {
-    const size_t Z = (size_t)B * H * (S / L), N = (size_t)B * H * S * dh;
-    const size_t LL = (size_t)B * H * S * L;
+    nc = S / L;
+    LP = (L + 3) / 4 * 4;
+    nt = (L + kBM - 1) / kBM;
+    ns = (L + kBN - 1) / kBN;
+    nd = (dh + kBN - 1) / kBN;
+    ni = (dh + kBM - 1) / kBM;
+    const size_t BH = (size_t)B * H, N = BH * S, Z = BH * nc;
     size_t at = 0;
     auto take = [&](size_t n) {
       const size_t here = at;
       at += up4(n);
       return here;
     };
-    gates = take(Z * kGB);
-    step = take(2 * (size_t)B * H * S);
-    ggr = take(Z * kGG);
-    Sm = take(LL);
-    dPm = take(LL);
-    dSt = take(LL);
-    Pm = take(LL);
-    dnum = take(N);
-    aq = take(N);
-    u = take(N);
-    x = take(N);
-    y = take(N);
-    dSq = take(N);
-    dSk = take(N);
-    Pd = take(N);
-    dnc = take(Z * dh);
-    G = take(Z * dh * dh);
+    gg = take(2 * N);
+    Mg = take(2 * N);
+    a = take(N);
+    w = take(N);
+    lo = take(N);
+    dhh = take(N);
+    qn = take(N);
+    r = take(N);
+    dd = take(N);
+    ar = take(N);
+    ars = take(N);
+    decay = take(Z);
+    kappa = take(Z);
+    P = take(Z * L * LP);
+    dP = take(Z * L * LP);
+    prow = take(N * ns);
+    lrow = take(N * ns);
+    lcol = take(N * nt);
+    dap = take(N * nd);
+    dwp = take(N * nd);
+    dw2p = take(N * nd);
+    ddp = take(Z * nd * ni);
+    dn = take(Z * dh);
+    G = take(nc > 1 ? Z * dh * dh : 0);
     total = at;
   }
 };
+
+bool valid(int B, int S, int H, int dh, int L) {
+  return B > 0 && H > 0 && dh > 0 && S > 0 && L > 0 && S % L == 0 &&
+         dh % 8 == 0 && L <= kMaxL && (L == S || L <= kStateL);
+}
 
 }  // namespace
 
 extern "C" int tryage_mlstm_scan_bwd(
     const float* q, const float* k, const float* v, const float* ig,
     const float* fg, const float* m0, const float* Cst, const float* nst,
-    const float* h, const float* dh_, float* dq, float* dk, float* dv,
-    float* di, float* df, float* work, int B, int S, int H, int dh, int L,
-    float scale, void* stream) {
+    const float* mst, const float* h, const float* dh_, float* dq, float* dk,
+    float* dv, float* di, float* df, float* work, int B, int S, int H, int dh,
+    int L, int zero_state, float scale, void* stream) {
   if (B <= 0 || H <= 0 || dh <= 0) return 0;
-  if (S <= 0 || L <= 0 || L > kL || S % L || dh % 8)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(B, S, H, dh, L)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nc = S / L, BH = B * H, Z = BH * nc;
   const Work w(B, S, H, dh, L);
-  float* gates = work + w.gates;
-  float* step = work + w.step;
-  float* ggr = work + w.ggr;
-  float* Sm = work + w.Sm;
-  float* dPm = work + w.dPm;
-  float* dSt = work + w.dSt;
-  float* Pm = work + w.Pm;
-  float* dnum = work + w.dnum;
-  float* aq = work + w.aq;
-  float* G = work + w.G;
-  float* dnc = work + w.dnc;
-  // layouts of a (row, chunk): the model's (B, S, H, dh), the workspace's
-  // (B, H, S, dh) and (B, H, S / L, L, L), and the states (B, H, S / L,
-  // dh, dh)
-  const long long D = dh, SD = (long long)S * dh, LD = (long long)L * dh;
-  const long long HD = (long long)H * dh;
-  const long long SL = (long long)S * L, LL = (long long)L * L;
-  const long long D2 = D * D;
-  auto model = [&](const float* p) { return op(p, S * HD, D, L * HD, H * dh); };
-  auto rows = [&](const float* p) { return op(p, H * SD, SD, LD, dh); };
-  auto sq = [&](const float* p) { return op(p, H * SL, SL, LL, L); };
-  auto state = [&](const float* p) {
-    return op(p, H * nc * D2, nc * D2, D2, dh);
-  };
-  const Op none = op(nullptr, 0, 0, 0, 0);
+  const int BH = B * H;
+  Args a;
+  a.q = q, a.k = k, a.v = v, a.ig = ig, a.fg = fg, a.m0 = m0, a.Cst = Cst;
+  a.nst = nst, a.mst = mst, a.h = h, a.dh_ = dh_;
+  a.dq = dq, a.dk = dk, a.dv = dv, a.di = di, a.df = df;
+  a.gg = reinterpret_cast<double*>(work + w.gg);
+  a.Mg = reinterpret_cast<double*>(work + w.Mg);
+  a.a = work + w.a, a.w = work + w.w, a.lo = work + w.lo, a.dhh = work + w.dhh;
+  a.qn = work + w.qn, a.r = work + w.r, a.dd = work + w.dd, a.ar = work + w.ar;
+  a.ars = work + w.ars, a.decay = work + w.decay, a.kappa = work + w.kappa;
+  a.P = work + w.P, a.dP = work + w.dP, a.prow = work + w.prow;
+  a.lrow = work + w.lrow, a.lcol = work + w.lcol, a.dap = work + w.dap;
+  a.dwp = work + w.dwp, a.dw2p = work + w.dw2p, a.ddp = work + w.ddp;
+  a.dn = work + w.dn, a.G = work + w.G;
+  a.S = S, a.H = H, a.dh = dh, a.L = L, a.nc = w.nc, a.LP = w.LP, a.nt = w.nt;
+  a.ns = w.ns, a.nd = w.nd, a.ni = w.ni, a.tiles = tiles_per_chunk(L);
+  a.zero_state = zero_state, a.scale = scale;
+  const size_t smem = sizeof(Smem);
   cudaError_t err;
 #define TRYAGE_CHECK(x)            \
   if ((err = (x)) != cudaSuccess) \
     return (int)err;
-
-  mlstm_bwd_gates<<<dim3(nc, BH), 32, 0, st>>>(ig, fg, m0, gates, S, H, L);
+  TRYAGE_CHECK(tryage::allow_smem(mlstm_bwd_mma_sdp, smem));
+  TRYAGE_CHECK(tryage::allow_smem(mlstm_bwd_mma_rec, smem));
+  TRYAGE_CHECK(tryage::allow_smem(mlstm_bwd_mma_out, smem));
+  mlstm_bwd_prep<<<dim3((S + kPrep - 1) / kPrep, BH), kThreads, 0, st>>>(a);
   TRYAGE_CHECK(cudaGetLastError());
-  // S = q k^T
-  TRYAGE_CHECK((gemm<false, true>(
-      {model(q), model(k), none, sq(Sm), nullptr, 0, L, L, dh, H, nc}, Z, st)));
-  mlstm_bwd_den<<<Z, kThreads, 0, st>>>(q, h, dh_, nst, gates, Sm, step, dnum,
-                                        aq, S, H, dh, L, scale);
+  mlstm_bwd_mma_sdp<<<dim3(w.nc * a.tiles, 2, BH), kThreads, smem, st>>>(a);
   TRYAGE_CHECK(cudaGetLastError());
-  // dP = dnum v^T
-  TRYAGE_CHECK((gemm<false, true>(
-      {rows(dnum), model(v), none, sq(dPm), nullptr, 0, L, L, dh, H, nc}, Z,
-      st)));
-  mlstm_bwd_ds<<<Z, kThreads, 0, st>>>(gates, step, Sm, dPm, dSt, Pm, ggr, L,
-                                       scale);
+  mlstm_bwd_ds<<<dim3(w.nc * a.tiles, BH), kThreads, 0, st>>>(a);
   TRYAGE_CHECK(cudaGetLastError());
-  mlstm_bwd_dn<<<dim3((dh + kThreads - 1) / kThreads, BH), kThreads, 0, st>>>(
-      aq, step, gates, dnc, G, S, dh, L);
-  TRYAGE_CHECK(cudaGetLastError());
-  // G_{c-1} = decay_c G_c + aq_c^T dnum_c, chunk by chunk in reverse
-  for (int c = nc - 1; c >= 1; --c) {
-    const float* aqc = aq + (size_t)c * LD;
-    const float* dnc_c = dnum + (size_t)c * LD;
-    const Op gc = op(G + c * D2, H * nc * D2, nc * D2, 0, dh);
-    const Op gp = op(G + (c - 1) * D2, H * nc * D2, nc * D2, 0, dh);
-    TRYAGE_CHECK((gemm<true, false>(
-        {op(aqc, H * SD, SD, 0, dh), op(dnc_c, H * SD, SD, 0, dh), gc, gp,
-         gates + (size_t)c * kGB + kDec, (long long)nc * kGB, dh, dh, L, H, 1},
-        BH, st)));
+  if (w.nc > 1) {
+    mlstm_bwd_mma_rec<<<dim3(w.nd, w.ni, BH), kThreads, smem, st>>>(a);
+    TRYAGE_CHECK(cudaGetLastError());
   }
-  float* u = work + w.u;
-  float* x = work + w.x;
-  float* y = work + w.y;
-  // u = dnum C^T, x = v G^T, y = k G
-  TRYAGE_CHECK((gemm<false, true>(
-      {rows(dnum), state(Cst), none, rows(u), nullptr, 0, L, dh, dh, H, nc}, Z,
-      st)));
-  TRYAGE_CHECK((gemm<false, true>(
-      {model(v), state(G), none, rows(x), nullptr, 0, L, dh, dh, H, nc}, Z,
-      st)));
-  TRYAGE_CHECK((gemm<false, false>(
-      {model(k), state(G), none, rows(y), nullptr, 0, L, dh, dh, H, nc}, Z,
-      st)));
-  mlstm_bwd_dot<<<Z, kThreads, 0, st>>>(G, Cst, dnc, nst, ggr, dh);
+  const int nm = (L + kBM - 1) / kBM;
+  mlstm_bwd_mma_out<<<dim3(w.nc * nm * w.nd, 3, BH), kThreads, smem, st>>>(a);
   TRYAGE_CHECK(cudaGetLastError());
-  float* dSq = work + w.dSq;
-  float* dSk = work + w.dSk;
-  float* Pd = work + w.Pd;
-  // dS~ k, dS~^T q, P^T dnum
-  TRYAGE_CHECK((gemm<false, false>(
-      {sq(dSt), model(k), none, rows(dSq), nullptr, 0, L, dh, L, H, nc}, Z,
-      st)));
-  TRYAGE_CHECK((gemm<true, false>(
-      {sq(dSt), model(q), none, rows(dSk), nullptr, 0, L, dh, L, H, nc}, Z,
-      st)));
-  TRYAGE_CHECK((gemm<true, false>(
-      {sq(Pm), rows(dnum), none, rows(Pd), nullptr, 0, L, dh, L, H, nc}, Z,
-      st)));
-  mlstm_bwd_out<<<Z, kThreads, 0, st>>>(q, k, nst, dnc, gates, step, u, x, y,
-                                        dSq, dSk, Pd, dq, dk, dv, ggr, S, H,
-                                        dh, L, scale);
-  TRYAGE_CHECK(cudaGetLastError());
-  mlstm_bwd_gate_grads<<<Z, kL, 0, st>>>(fg, gates, ggr, di, df, S, H, L);
+  mlstm_bwd_gate_grads<<<dim3(w.nc, BH), kThreads, 0, st>>>(a);
   TRYAGE_CHECK(cudaGetLastError());
 #undef TRYAGE_CHECK
   return 0;
@@ -647,6 +1075,6 @@ extern "C" int tryage_mlstm_scan_bwd(
 // Floats of workspace tryage_mlstm_scan_bwd needs, for the wrapper.
 extern "C" long long tryage_mlstm_scan_bwd_workspace(int B, int S, int H,
                                                      int dh, int L) {
-  if (B <= 0 || H <= 0 || S <= 0 || dh <= 0 || L <= 0 || S % L) return 0;
+  if (!valid(B, S, H, dh, L)) return 0;
   return (long long)Work(B, S, H, dh, L).total;
 }

@@ -27,16 +27,23 @@ JAX reference does.
 
 The gradient: when grad mode is on and q, k, v or a gate needs one,
 ``mlstm_chunkwise`` runs as ``_MlstmChunkwise`` (a
-``torch.autograd.Function``): on CUDA tensors the forward kernel, which
-then also writes C and n at each chunk's start, and the backward kernel
-``csrc/mlstm_scan_bwd.cu`` (``mlstm_chunkwise_bwd``; no Pallas
-counterpart: the JAX package differentiates ``_mlstm_cell_chunkwise``
-with XLA); on CPU tensors the plain version and
-``mlstm_chunkwise_grad_plain``, autograd of it.  Training starts from a
-state that needs no gradient and reads no final state, so the backward
-takes no gradient into the initial state and none out of the final one:
-an initial state that requires grad is refused before anything runs,
-and a non-zero gradient arriving at the final state raises.
+``torch.autograd.Function``): on CUDA tensors the forward kernel and the
+backward kernel ``csrc/mlstm_scan_bwd.cu`` (``mlstm_chunkwise_bwd``; no
+Pallas counterpart: the JAX package differentiates
+``_mlstm_cell_chunkwise`` with XLA); on CPU tensors the plain version
+and ``mlstm_chunkwise_grad_plain``, autograd of it.  The backward takes
+its own chunk, ``backward_chunk(S, dh)``: the whole sequence where that
+takes fewer operations (no state products, and the forward writes no
+states), else the forward's chunk, from C and n at each chunk's start,
+which the forward kernel then writes.  A caller that built the initial
+state as zeros says so (``zero_state=True``, as ``models.ssm.mlstm_full``
+does without a state) and the backward skips the products that read it.
+Training starts from a state that needs no gradient and reads no final
+state, so the backward takes no gradient into the initial state and none
+out of the final one: an initial state that requires grad is refused
+before anything runs, and a non-zero gradient arriving at the final state
+raises.  ``mlstm_chunkwise_bwd_explicit`` writes the backward kernel's
+formulas out in torch, for the tests.
 """
 
 from __future__ import annotations
@@ -57,16 +64,39 @@ def log_sigmoid(x):
     return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
 
 
+def backward_chunk(S: int, dh: int) -> int:
+    """The backward kernel's chunk for S steps at head dim dh: S (one
+    chunk, so the state's gradient and its products drop out) or the
+    forward's chunk L (``pick_chunk(S, MAX_CHUNK)``), whichever takes
+    fewer operations.  A row costs 5 S^2 dh with one chunk (the five
+    in-chunk products, causal) against S (8 dh^2 + 5 L dh) with chunks
+    of L (four state products of 2 L dh^2 a chunk beside the five), so
+    one chunk wins up to S of about 1.6 dh + L."""
+    L = pick_chunk(S, MAX_CHUNK)
+    return S if 5 * S * dh <= 8 * dh * dh + 5 * L * dh else L
+
+
 def mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state, chunk=MAX_CHUNK):
     """Chunkwise-parallel mLSTM in torch ops; same arguments and
     results as ``mlstm_chunkwise``."""
+    h, out, _ = _chunkwise(q, k, v, i_pre, f_pre, state, chunk, False)
+    return h, out
+
+
+def _chunkwise(q, k, v, i_pre, f_pre, state, chunk, keep_states):
+    """``mlstm_chunkwise_plain``'s (h, final state), and with
+    ``keep_states`` C, n and m at each chunk's start ((B, H, S / L, dh,
+    dh), (B, H, S / L, dh), (B, H, S / L)) as the forward kernel writes
+    them, else None."""
     B, T, H, dh = q.shape
     L = pick_chunk(T, chunk)
     qs = q * (1.0 / math.sqrt(dh))
     C, n, m = state["C"], state["n"], state["m"]
     causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
-    hs = []
+    hs, starts = [], []
     for c0 in range(0, T, L):
+        if keep_states:
+            starts.append((C, n, m))
         sl = slice(c0, c0 + L)
         qc, kc, vc, ic, fc = qs[:, sl], k[:, sl], v[:, sl], i_pre[:, sl], \
             f_pre[:, sl]
@@ -93,7 +123,9 @@ def mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state, chunk=MAX_CHUNK):
                                                       kw, vc)
         n = decay[..., None] * n + kw.sum(dim=1)
         m = m_last
-    return torch.cat(hs, dim=1), {"C": C, "n": n, "m": m}
+    states = (tuple(torch.stack(x, dim=2) for x in zip(*starts))
+              if keep_states else None)
+    return torch.cat(hs, dim=1), {"C": C, "n": n, "m": m}, states
 
 
 def mlstm_sequential(q, k, v, i_pre, f_pre, state):
@@ -150,7 +182,7 @@ def _aligned(t):
 
 def _launch(q, k, v, i_pre, f_pre, state, keep_states):
     """The forward kernel: (h, {"C", "n", "m"}, and with ``keep_states``
-    C and n at each chunk's start (Cst, nst), else None)."""
+    C, n and m at each chunk's start (Cst, nst, mst), else None)."""
     B, S, H, dh = q.shape
     if dh % 8 or dh > MAX_HEAD_DIM:
         raise ValueError(f"mlstm_chunkwise: head_dim {dh} must be a multiple "
@@ -168,12 +200,13 @@ def _launch(q, k, v, i_pre, f_pre, state, keep_states):
     states = None
     if keep_states:
         states = (torch.empty(B, H, S // L, dh, dh, device=q.device),
-                  torch.empty(B, H, S // L, dh, device=q.device))
+                  torch.empty(B, H, S // L, dh, device=q.device),
+                  torch.empty(B, H, S // L, device=q.device))
     build.launch(
         "tryage_mlstm_scan", q.device, *(t.data_ptr() for t in args),
         h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
         work.data_ptr(),
-        *((None, None) if states is None else (t.data_ptr() for t in states)),
+        *((None,) * 3 if states is None else (t.data_ptr() for t in states)),
         B, S, H, dh, L, 1.0 / math.sqrt(dh))
     mlstm_chunkwise.launches += 1
     return h, {"C": C1, "n": n1, "m": m1}, states
@@ -192,13 +225,18 @@ def mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh,
         return torch.autograd.grad(h, leaves, dh)
 
 
-def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states):
+def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states=None,
+                        zero_state=False):
     """(dq, dk, dv, di, df) of the scan's h from ``state``, given h (the
     forward's output) and its gradient ``dh``: ``csrc/mlstm_scan_bwd.cu``
-    on CUDA tensors, from ``states`` = (Cst, nst), C and n at each
-    chunk's start as the forward kernel writes them with ``keep_states``;
-    ``mlstm_chunkwise_grad_plain`` on CPU ones, which needs neither h nor
-    ``states``."""
+    on CUDA tensors, at the chunk ``backward_chunk(S, dh)``: with one
+    chunk from ``state`` (``states`` None), else from ``states`` =
+    (Cst, nst, mst), C, n and m at each chunk's start as the forward
+    kernel writes them with ``keep_states``.  ``zero_state``: the caller built
+    ``state`` as zeros, so the products that read it are skipped (never
+    read off the tensor: that would wait on the card).
+    ``mlstm_chunkwise_grad_plain`` on CPU tensors, which needs neither h
+    nor ``states``."""
     _check(q, k, v, i_pre, f_pre, state)
     if q.device.type == "cpu":
         return mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh)
@@ -208,12 +246,19 @@ def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states):
         raise ValueError(f"mlstm_chunkwise_bwd: h {tuple(h.shape)}, dh "
                          f"{tuple(dh.shape)} do not fit q {tuple(q.shape)}")
     B, S, H, d = q.shape
-    L = pick_chunk(S, MAX_CHUNK)
-    want = ((B, H, S // L, d, d), (B, H, S // L, d))
-    if len(states) != 2 or any(tuple(t.shape) != w
-                               for t, w in zip(states, want)):
-        raise ValueError(f"mlstm_chunkwise_bwd: states "
-                         f"{[tuple(t.shape) for t in states]}, want {want}")
+    L = backward_chunk(S, d)
+    if L == S:
+        if states is not None:
+            raise ValueError("mlstm_chunkwise_bwd: one chunk reads the "
+                             "initial state, not the chunk-start states")
+        states = (state["C"], state["n"], state["m"])
+    else:
+        want = ((B, H, S // L, d, d), (B, H, S // L, d), (B, H, S // L))
+        if states is None or len(states) != 3 or any(
+                tuple(t.shape) != w for t, w in zip(states, want)):
+            raise ValueError(f"mlstm_chunkwise_bwd: states "
+                             f"{states and [tuple(t.shape) for t in states]}"
+                             f", want {want}")
     args = [_aligned(t.detach().contiguous())
             for t in (q, k, v, i_pre, f_pre, state["m"], *states, h, dh)]
     grads = [torch.empty_like(t) for t in args[:5]]
@@ -224,27 +269,136 @@ def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states):
     build.launch(
         "tryage_mlstm_scan_bwd", q.device, *(t.data_ptr() for t in args),
         *(t.data_ptr() for t in grads), work.data_ptr(), B, S, H, d, L,
-        1.0 / math.sqrt(d))
+        int(zero_state), 1.0 / math.sqrt(d))
     mlstm_chunkwise_bwd.launches += 1
     return tuple(grads)
 
 
+def mlstm_chunkwise_bwd_explicit(q, k, v, i_pre, f_pre, state, dh,
+                                 chunk=None, zero_state=False):
+    """(dq, dk, dv, di, df) by the backward kernel's formulas written out
+    in torch, at the backward's chunk ``chunk`` (default
+    ``backward_chunk``), from C and n at each chunk's start, with the
+    stabiliser held constant and, with ``zero_state``, the initial
+    state's products skipped.  The tests hold it against ``jax.grad``;
+    nothing on the main path calls it.
+
+    Per row, in f64 as the kernel keeps them: F the cumulative
+    log-sigmoid of f over the sequence, g_s = i_s - F_s and M_t =
+    max(m0, max_{s <= t} g_s), so m_t = F_t + M_t and, in a chunk that
+    starts after step c0 - 1, D_ts = e^{g_s - M_t}, a_t = e^{M_{c0-1} -
+    M_t}, w_s = e^{g_s - M_end}, decay = e^{M_{c0-1} - M_end} and the
+    floor e^{-m_t}; the forward's chunk-start states, scaled by its own
+    f32 stabiliser m_c, are read with a_t kappa, kappa = e^{m_c - F_{c0-1}
+    - M_{c0-1}}.  With r_t = 1 / max(|den_t|, e^{-m_t}) and dden_t as
+    the kernel's header says: dP = r dh v^T + dden, dS = dP D / sqrt(dh),
+    P' = r P; dq = dS k (+ a / sqrt(dh) (r dh C^T + dden n)), dk = dS^T q
+    (+ w (v G^T + dn)), dv = P'^T dh (+ w k G); G and dn of each chunk in
+    reverse."""
+    B, S, H, d = q.shape
+    L = backward_chunk(S, d) if chunk is None else chunk
+    nc, scale = S // L, 1.0 / math.sqrt(d)
+    h, _, _ = _chunkwise(q, k, v, i_pre, f_pre, state, MAX_CHUNK, False)
+    if L == S:
+        Cst, nst, mst = (state[x][:, :, None] for x in "Cnm")
+    else:
+        _, _, (Cst, nst, mst) = _chunkwise(q, k, v, i_pre, f_pre, state, L,
+                                           True)
+    qh, kh, vh, hh, gh = (t.transpose(1, 2) for t in (q, k, v, h, dh))
+    F = log_sigmoid(f_pre).double().transpose(1, 2).cumsum(-1)   # (B,H,S)
+    g = i_pre.double().transpose(1, 2) - F
+    m0 = state["m"].double()
+    M = torch.maximum(torch.cummax(g, -1).values, m0[..., None])
+    lo = torch.exp(-(F + M)).float()
+    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    G = torch.zeros(B, H, d, d, dtype=q.dtype, device=q.device)
+    dn = torch.zeros(B, H, d, dtype=q.dtype, device=q.device)
+    outs = []
+    for c in reversed(range(nc)):
+        sl = slice(c * L, (c + 1) * L)
+        M_prev = m0 if c == 0 else M[..., c * L - 1]
+        F_prev = 0.0 if c == 0 else F[..., c * L - 1]
+        # the forward's states carry its own f32 stabiliser at the chunk's
+        # start: kappa takes them to this one (1 for one chunk)
+        kappa = torch.exp(mst[:, :, c].double() - F_prev - M_prev).float()
+        M_t, g_c, M_end = M[..., sl], g[..., sl], M[..., (c + 1) * L - 1]
+        a = torch.exp(M_prev[..., None] - M_t).float()
+        w = torch.exp(g_c - M_end[..., None]).float()
+        decay = torch.exp(M_prev - M_end).float()
+        E = torch.where(causal, torch.exp(g_c[..., None, :]
+                                          - M_t[..., :, None]),
+                        0.0).float() * scale
+        qc, kc, vc, hc, gc = (t[:, :, sl] for t in (qh, kh, vh, hh, gh))
+        Cc, n_c = Cst[:, :, c], nst[:, :, c]
+        has_state = c > 0 or not zero_state
+        P = E * (qc @ kc.transpose(-1, -2))
+        a_st = kappa[..., None] * a          # a for the forward's states
+        qn = (qc * n_c[:, :, None]).sum(-1) if has_state else 0.0
+        den = a_st * scale * qn + P.sum(-1)
+        r = 1.0 / torch.maximum(den.abs(), lo[..., sl])
+        dden = torch.where(den.abs() > lo[..., sl],
+                           -torch.sign(den) * (gc * hc).sum(-1) * r, 0.0)
+        dP = r[..., None] * (gc @ vc.transpose(-1, -2)) + dden[..., None]
+        dS, l = dP * E, dP * P
+        dq_c = dS @ kc
+        dk_c = dS.transpose(-1, -2) @ qc
+        dv_c = (r[..., None] * P).transpose(-1, -2) @ gc
+        ar = scale * a * r
+        da = ww = dd = 0.0
+        if has_state:
+            u = (scale * a_st * r)[..., None] * (gc @ Cc.transpose(-1, -2))
+            dq_c = dq_c + u + (scale * a_st * dden)[..., None] * n_c[:, :, None]
+            da = (qc * u).sum(-1) + scale * a_st * dden * qn
+        if c < nc - 1:
+            y = kc @ G
+            dk_c = dk_c + w[..., None] * (vc @ G.transpose(-1, -2)
+                                          + dn[:, :, None])
+            dv_c = dv_c + w[..., None] * y
+            ww = w * ((vc * y).sum(-1) + (kc * dn[:, :, None]).sum(-1))
+            if has_state:
+                dd = kappa * ((G * Cc).sum((-1, -2)) + (dn * n_c).sum(-1))
+        cs = l.sum(-2)
+        dF = l.sum(-1) - cs + da - ww
+        di_c = cs + ww
+        tail = dd * decay + (ww.sum(-1) if c < nc - 1 else 0.0)
+        dF = torch.cat([dF[..., :-1], dF[..., -1:] + (
+            tail[..., None] if torch.is_tensor(tail) else tail)], -1)
+        dlog = dF.flip(-1).cumsum(-1).flip(-1)
+        df_c = dlog / (1.0 + torch.exp(f_pre[:, sl].transpose(1, 2)))
+        outs.append((dq_c, dk_c, dv_c, di_c, df_c))
+        if c > 0:
+            G = decay[..., None, None] * G + (ar[..., None] * qc).transpose(
+                -1, -2) @ gc
+            dn = decay[..., None] * dn + ((scale * a * dden)[..., None]
+                                          * qc).sum(-2)
+    outs.reverse()
+    dq, dk, dv, di, df = (torch.cat(parts, dim=2)
+                          for parts in zip(*outs))
+    return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+            di.transpose(1, 2), df.transpose(1, 2))
+
+
 class _MlstmChunkwise(torch.autograd.Function):
     """The scan as one differentiable op from a state that takes no
-    gradient: the forward kernel (writing the chunk-start states) and
-    the backward kernel on CUDA tensors, the plain version and its
-    autograd on CPU ones."""
+    gradient: the forward kernel (writing the chunk-start states when
+    the backward takes chunks shorter than the sequence) and the backward
+    kernel on CUDA tensors, the plain version and its autograd on CPU
+    ones."""
 
     @staticmethod
-    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0):
+    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0, zero_state):
         state = {"C": C0, "n": n0, "m": m0}
         if q.device.type == "cpu":    # the plain backward needs no states
             (h, out), states = mlstm_chunkwise_plain(q, k, v, i_pre, f_pre,
                                                      state), ()
         else:
-            h, out, states = _launch(q, k, v, i_pre, f_pre, state, True)
+            B, S, H, dh = q.shape
+            h, out, states = _launch(q, k, v, i_pre, f_pre, state,
+                                     backward_chunk(S, dh) < S)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, h, *states)
+        ctx.zero_state = zero_state
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, h,
+                              *(states or ()))
         return h, out["C"], out["n"], out["m"]
 
     @staticmethod
@@ -260,15 +414,17 @@ class _MlstmChunkwise(torch.autograd.Function):
             dh = torch.zeros_like(h)
         state = {"C": C0, "n": n0, "m": m0}
         grads = mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h,
-                                    dh.contiguous(), states)
-        return (*grads, None, None, None)
+                                    dh.contiguous(), states or None,
+                                    ctx.zero_state)
+        return (*grads, None, None, None, None)
 
 
-def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
+def mlstm_chunkwise(q, k, v, i_pre, f_pre, state, zero_state=False):
     """The mLSTM over a sequence from ``state``: the kernel on CUDA
     tensors, ``mlstm_chunkwise_plain`` on CPU ones, each through
-    ``_MlstmChunkwise`` when a gradient is needed.  Returns
-    (h (B, S, H, dh), {"C", "n", "m"})."""
+    ``_MlstmChunkwise`` when a gradient is needed.  ``zero_state``: the
+    caller built ``state`` as zeros (the backward kernel then skips the
+    products that read it).  Returns (h (B, S, H, dh), {"C", "n", "m"})."""
     _check(q, k, v, i_pre, f_pre, state)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mlstm_chunkwise: no kernel for {q.device}")
@@ -280,7 +436,8 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state):
                 "from zeros): detach it")
         if any(t.requires_grad for t in (q, k, v, i_pre, f_pre)):
             h, C1, n1, m1 = _MlstmChunkwise.apply(
-                q, k, v, i_pre, f_pre, state["C"], state["n"], state["m"])
+                q, k, v, i_pre, f_pre, state["C"], state["n"], state["m"],
+                zero_state)
             return h, {"C": C1, "n": n1, "m": m1}
     if q.device.type == "cpu":
         return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)

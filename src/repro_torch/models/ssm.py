@@ -219,12 +219,15 @@ def _mlstm_out(p, h, og, x, cfg):
 
 def mlstm_full(p, x, cfg: ModelConfig, state=None):
     """x (B, T, d) -> (y (B, T, d), state); the recurrence through the
-    ``mlstm_scan`` kernel wrapper, chunk ``pick_chunk(T, 64)``."""
-    if state is None:
+    ``mlstm_scan`` kernel wrapper, chunk ``pick_chunk(T, 64)``; without a
+    ``state`` it starts from zeros and says so to the backward, which
+    then skips the products that read the initial state."""
+    zero_state = state is None
+    if zero_state:
         state = init_mlstm_state(x.shape[0], cfg, x.device)
     q, k, v, i_pre, f_pre, og = _mlstm_gates_qkv(p, x, cfg)
     h, state = mlstm_chunkwise(q.float(), k.float(), v.float(), i_pre, f_pre,
-                               state)
+                               state, zero_state=zero_state)
     return _mlstm_out(p, h, og, x, cfg), state
 
 

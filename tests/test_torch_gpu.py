@@ -654,7 +654,9 @@ def _mlstm_inputs(B, S, H, dh, carried, seed):
 
 MLSTM_BWD_CASES = [  # (B, S, H, dh, carried state)
     (1, 40, 3, 16, False), (2, 128, 2, 64, False), (2, 96, 2, 32, True),
-    (2, 128, 2, 256, False), (2, 512, 4, 1024, False)]
+    (2, 128, 2, 256, False), (2, 512, 4, 1024, False),
+    # the backward takes the forward's chunk (backward_chunk < S)
+    (1, 2048, 2, 256, False), (1, 1024, 2, 128, True), (1, 97, 1, 8, True)]
 
 
 @pytest.mark.parametrize("B,S,H,dh,carried", MLSTM_BWD_CASES)
@@ -671,6 +673,24 @@ def test_mlstm_backward_matches_plain(B, S, H, dh, carried):
     torch.cuda.synchronize()
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,dh", [(2, 512, 4, 1024), (1, 2048, 2, 256)])
+def test_mlstm_backward_zero_state_skip(B, S, H, dh):
+    """From a zero state passed as such (``zero_state=True``, as
+    ``mlstm_full`` passes it) the backward skips the products that read
+    it and still matches the plain gradient, with one chunk and with
+    chunks."""
+    _card()
+    q, k, v, i, f, st = _mlstm_inputs(B, S, H, dh, False, seed=dh)
+    dh_ = torch.randn(B, S, H, dh, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, i, f)]
+    h, _ = ml_ops.mlstm_chunkwise(*leaves, st, zero_state=True)
+    got = torch.autograd.grad(h, leaves, dh_)
+    want = ml_ops.mlstm_chunkwise_grad_plain(q, k, v, i, f, st, dh_)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
