@@ -70,8 +70,9 @@ just before it and read just after:
   profiler's trace is whole: ``mlstm_bwd_launches``);
 * ``zoo_train``: ``train_step`` in bf16 with remat at full width, 5
   AdamW steps on one fixed batch each: tinyllama-1.1b (22 layers, 4 x
-  512), gemma3-4b (34 layers, 1 x 2048), xlstm-1.3b (48 layers, 2 x
-  512) and qwen2-moe-a2.7b (4 of its 24 layers: 24 would need about 230
+  512), gemma3-4b (34 layers, 1 x 2048), xlstm-1.3b (16 of its 48
+  layers, 2 x 512: the sLSTM's loop sets the step's time) and
+  qwen2-moe-a2.7b (4 of its 24 layers: 24 would need about 230
   GB), each loss must fall, each step must launch each backward kernel
   once per such layer, and no plain version may run; ms a step,
   tokens/s, peak memory, a profiled step's busy share, top kernels and
@@ -105,7 +106,29 @@ just before it and read just after:
 * ``serve_cli``: ``python -m repro_torch.launch.serve``'s ``main`` three
   times: every tier under 600 req/s Poisson arrivals over 4 sessions,
   the same again as a restart over the same directory (answered from
-  T2), and the FIFO drain with the exact tier.
+  T2), and the FIFO drain with the exact tier;
+* ``sanitize`` (after ``serve_path``): the sanitizer on the four forward
+  wrappers on the card: clean inputs give bit-identical outputs with
+  the switch on and off, a NaN in q or emb, a window past T, m at 90
+  and a choice out of [0, M) raise the reference's texts, the engine's
+  ``_sanitize_batch`` refuses a token id past the vocab, and 64
+  requests through ``run()`` under the switch decide as ``main_path``
+  did; ms a call with the switch on and off;
+* ``autotune``: ``launch.autotune`` on the card for the router heads,
+  attention and the mLSTM into a temporary table; with the wrappers
+  pointed at it each kernel runs at each tabulated geometry against its
+  plain version, the engine's ``router_tiles`` record the table's
+  geometry and ``main_path``'s requests decide as without the table
+  but at near ties;
+* ``checkpoint``: tinyllama-1.1b in bf16 saved with ``save_pytree``
+  through the inverse bridge and loaded back onto the card with
+  ``model_from_checkpoint``: every leaf bit-identical, the same 4
+  greedy tokens; ``CheckpointManager`` keeps the best and the last 2;
+* ``dryrun``: ``launch.dryrun.run_one`` on the meta device for
+  tinyllama-1.1b at a 4 x 512 prefill and train step, then the same
+  steps on the card: parameter bytes exact; the predicted peak, dot
+  FLOPs (``FlopCounterMode`` plus the kernels' recorded work) and the
+  roofline's bound beside the measured ones (reported, not gated).
 
 It checks that every kernel of each path was launched in that path's
 run, and times each kernel beside its bound; the router heads also at
@@ -214,12 +237,14 @@ MLSTM_GRAD_CASES = [(2, 512, 4, 1024, False), (2, 128, 2, 256, False),
                     (1, 1024, 2, 128, True)]
 MLSTM_GRAD_REL_TOL = 1e-4
 # zoo_train: (arch, fields cut, batch, seq), full width in bf16, remat on,
-# TRAIN_STEPS AdamW steps (lr ZOO_TRAIN_LR) on one fixed batch; only
-# qwen2-moe is cut (24 layers would need about 230 GB: bf16 weights and
-# gradients and f32 moments)
+# TRAIN_STEPS AdamW steps (lr ZOO_TRAIN_LR) on one fixed batch; qwen2-moe
+# is cut (24 layers would need about 230 GB: bf16 weights and gradients
+# and f32 moments), and xlstm to 2 of its 6 units (16 layers): a step's
+# time is its sLSTM layers' Python loop, 16 s at 48 layers on a slow
+# host, which the script's time limit cannot spare
 ZOO_TRAIN = [("tinyllama-1.1b", None, 4, 512),
              ("gemma3-4b", None, 1, 2048),
-             ("xlstm-1.3b", None, 2, 512),
+             ("xlstm-1.3b", {"num_layers": 16}, 2, 512),
              ("qwen2-moe-a2.7b", {"num_layers": 4}, 4, 512)]
 TRAIN_STEPS = 5
 # the reference CLI's lr: bf16 weights of ~1/sqrt(d) move at it
@@ -2950,6 +2975,387 @@ def device_launches(torch, fn, kernel: str, iters=10):
     return n / iters or None
 
 
+# ------------------------------------------------------ launch tooling
+
+def expect_error(fn, text: str) -> str:
+    """Call ``fn`` and require a ValueError whose message is ``text``."""
+    try:
+        fn()
+    except ValueError as e:
+        check(str(e) == text, f"raised {str(e)!r}, want {text!r}")
+        return type(e).__name__
+    raise RuntimeError(f"chip_smoke: no error, want {text!r}")
+
+
+def sanitize_phase(torch, s, run_res: dict) -> dict:
+    """The sanitizer (``kernels.sanitize``) on the card: each of the four
+    forward wrappers with the switch on gives bit-identical outputs on
+    clean inputs to a call with it off; bad inputs raise the reference's
+    texts; the engine's ``_sanitize_batch`` refuses a token id past the
+    vocab; 64 requests through ``run()`` under the switch decide as
+    ``main_path``'s did; ms a call with the switch on and off."""
+    from repro_torch.kernels import sanitize
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops
+    from repro_torch.kernels.router_cascade import ops as rc_ops
+    from repro_torch.kernels.router_score import ops as rs_ops
+    from repro_torch.serving import TryageEngine
+
+    t = head_inputs(torch, MAX_BATCH, seed=41)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (torch.randn(MAX_BATCH, SEQ, 4, 32, device="cuda", generator=g)
+               for _ in range(3))
+    ml = mlstm_inputs(torch, 2, 128, 2, 64, True, seed=41)
+    calls = {
+        "router_score": lambda: rs_ops.router_score_fused(
+            *(t[n] for n in SCORE_ARGS)),
+        "router_cascade": lambda: rc_ops.router_score_cascade_fused(
+            *(t[n] for n in CASCADE_ARGS)),
+        "flash_attention": lambda: fa_ops.flash_attention(q, k, v,
+                                                          causal=False),
+        "mlstm_scan": lambda: ml_ops.mlstm_chunkwise(*ml)}
+
+    def leaves(out):
+        if isinstance(out, dict):
+            return list(out.values())
+        if isinstance(out, (tuple, list)):
+            return [x for o in out for x in leaves(o)]
+        return [out]
+
+    times = {}
+    try:
+        for name, fn in calls.items():
+            sanitize.set_sanitize(False)
+            off = leaves(fn())
+            sanitize.set_sanitize(True)
+            on = leaves(fn())
+            check(all(torch.equal(a, b) for a, b in zip(off, on)),
+                  f"{name}: outputs differ with the sanitizer on")
+            times[name] = {"on_ms": events_ms(torch, fn)}
+            sanitize.set_sanitize(False)
+            times[name]["off_ms"] = events_ms(torch, fn)
+        sanitize.set_sanitize(True)
+        M = t["w2"].shape[1]
+        raised = {}
+        q_nan = q.clone()
+        q_nan[0, 3, 1, 2] = float("nan")
+        raised["nan_q"] = expect_error(
+            lambda: fa_ops.flash_attention(q_nan, k, v, causal=False),
+            "flash_attention: non-finite input")
+        raised["window"] = expect_error(
+            lambda: fa_ops.flash_attention(q, k, v, causal=True,
+                                           window=SEQ + 1),
+            f"flash_attention: window out of range [0, {SEQ + 1})")
+        st = dict(ml[5], m=torch.full_like(ml[5]["m"], 90.0))
+        raised["m_90"] = expect_error(
+            lambda: ml_ops.mlstm_chunkwise(*ml[:5], st),
+            "mlstm_scan: stabilizer state m out of range [-80.0, 80.0)")
+        emb_nan = t["emb"].clone()
+        emb_nan[5, 7] = float("nan")
+        raised["nan_emb"] = expect_error(
+            lambda: rs_ops.router_score_fused(
+                emb_nan, *(t[n] for n in SCORE_ARGS[1:])),
+            "router_score: non-finite input")
+        bad = torch.tensor([0, M - 1, M], dtype=torch.int32, device="cuda")
+        raised["choice"] = expect_error(
+            lambda: sanitize.run_checks(sanitize.check_in_range(
+                "router_score", "expert choice", bad, 0, M)),
+            f"router_score: expert choice out of range [0, {M})")
+        eng = TryageEngine(s.lib, s.router, s.rc, s.cons, max_batch=MAX_BATCH,
+                           fused_cascade=True, device="cuda")
+        toks = np.zeros((4, SEQ), np.int32)
+        toks[2, 9] = s.rc.vocab_size
+        pred = torch.zeros(4, M, device="cuda")
+        raised["token_id"] = expect_error(
+            lambda: eng._sanitize_batch(toks, pred),
+            f"router_score: token id out of range [0, {s.rc.vocab_size})")
+        reqs = s.requests()[:64]
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        res = {r.uid: r for r in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sanitize.set_sanitize(None)
+    differ = [u for u, r in res.items()
+              if (r.expert, r.cascade_depth)
+              != (run_res[u].expert, run_res[u].cascade_depth)
+              or abs(r.loss - run_res[u].loss) > NLL_ATOL]
+    check(not differ, f"decisions under the sanitizer differ: uids {differ}")
+    out = {"ms_per_call": times, "raised": raised, "run_requests": len(res),
+           "run_wall_s": wall, "decisions_differ": len(differ)}
+    emit("sanitize", **out)
+    return out
+
+
+def autotune_phase(torch, s, run_res: dict) -> dict:
+    """``launch.autotune`` on the card for all three kernel families
+    into a temporary table; with ``tiles.set_table_path`` at it, each
+    kernel at each tabulated geometry against its plain version (the
+    mLSTM at the same chunk) to ``parity_phase``'s tolerances; the
+    engine's ``router_tiles`` record the table's geometry; ``main_path``'s
+    requests through ``run()`` decide as without the table but at near
+    ties."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import tiles
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops
+    from repro_torch.kernels.router_cascade import ops as rc_ops
+    from repro_torch.kernels.router_score import ops as rs_ops
+    from repro_torch.launch import autotune
+    from repro_torch.serving import TryageEngine
+
+    tmp = tempfile.mkdtemp(prefix="tryage_tiles_")
+    path = os.path.join(tmp, "tile_table_torch.json")
+    t0 = time.perf_counter()
+    table = autotune.autotune(repeats=5)
+    tune_s = time.perf_counter() - t0
+    autotune.write_table(table, path)
+    tiles.set_table_path(path)
+    key = tiles.backend_key()
+    checked = []
+    try:
+        entries = table[key]
+        check(set(entries) == set(autotune.KERNELS),
+              f"table kernels {sorted(entries)}")
+        for name, fn, plain, args, plan in (
+                ("router_score", rs_ops.router_score_fused,
+                 rs_ops.router_score_plain, SCORE_ARGS, rs_ops.decision_plan),
+                ("router_cascade", rc_ops.router_score_cascade_fused,
+                 rc_ops.router_cascade_plain, CASCADE_ARGS,
+                 rc_ops.decision_plan)):
+            for b, e in entries[name].items():
+                B = int(b)
+                t = head_inputs(torch, B, seed=B + 3)
+                a = [t[n] for n in args]
+                check(plan(B, 128, 128)["k_groups"] == e["k_groups"],
+                      f"{name} B={B}: the plan ignores the table")
+                got, want = fn(*a), plain(*a)
+                err = max(float((x - y).abs().max())
+                          for x, y in zip(got, want) if x.is_floating_point())
+                combined = want[0] + t["lam"] @ t["cvals"]
+                d, n = choice_diffs(torch, got[-2 if name == "router_cascade"
+                                               else 1],
+                                    want[-2 if name == "router_cascade"
+                                         else 1], combined)
+                check(err <= ROUTER_TOL and d == n,
+                      f"{name} B={B} k_groups {e['k_groups']}: err {err}, "
+                      f"{d} choices differ, {n} near ties")
+                checked.append({"kernel": name, "B": B,
+                                "k_groups": e["k_groups"], "max_abs_err": err})
+        S, H, hd = (autotune.ATTENTION[n] for n in ("S", "H", "hd"))
+        for b, e in entries["flash_attention"].items():
+            B = int(b)
+            g = torch.Generator(device="cuda").manual_seed(B)
+            q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=g)
+                       for _ in range(3))
+            check(fa_ops.forward_plan(B, S, H, hd)["launch_warps"]
+                  == e["warps"], f"flash_attention B={B}: plan ignores table")
+            err = float((fa_ops.flash_attention(q, k, v, causal=False)
+                         - fa_ops.attention_plain(q, k, v, causal=False))
+                        .abs().max())
+            check(err <= ATTN_TOL, f"flash_attention B={B} warps "
+                                   f"{e['warps']}: err {err}")
+            checked.append({"kernel": "flash_attention", "B": B,
+                            "warps": e["warps"], "max_abs_err": err})
+        S, H, dh = (autotune.MLSTM[n] for n in ("S", "H", "dh"))
+        for b, e in entries["mlstm_scan"].items():
+            B = int(b)
+            args = mlstm_inputs(torch, B, S, H, dh, False, seed=B + 5)
+            L = ml_ops.forward_chunk(B, S)
+            check(L == e["chunk"], f"mlstm_scan B={B}: plan ignores table")
+            h, st = ml_ops.mlstm_chunkwise(*args)
+            rh, rst = ml_ops.mlstm_chunkwise_plain(*args, chunk=L)
+            rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                      for a, b in ((h, rh), (st["C"], rst["C"]),
+                                   (st["n"], rst["n"])))
+            check(rel <= MLSTM_REL_TOL, f"mlstm_scan B={B} chunk {L}: "
+                                        f"error {rel} of the largest")
+            checked.append({"kernel": "mlstm_scan", "B": B, "chunk": L,
+                            "rel_err": rel})
+            del args, h, st, rh, rst
+        eng = TryageEngine(s.lib, s.router, s.rc, s.cons, max_batch=MAX_BATCH,
+                           fused_cascade=True, device="cuda")
+        reqs = s.requests()
+        for r in reqs:
+            eng.submit(r)
+        res = {r.uid: r for r in eng.run()}
+        torch.cuda.synchronize()
+        for name, plans in eng.stats.router_tiles.items():
+            for Bp, plan in plans.items():
+                want = tiles.tile_for(name, Bp, "k_groups", -1)
+                check(plan["k_groups"] == want, f"router_tiles[{name}][{Bp}] "
+                                                f"{plan}, table {want}")
+        differ = [u for u, r in res.items()
+                  if (r.expert, r.cascade_depth)
+                  != (run_res[u].expert, run_res[u].cascade_depth)]
+        excused = sum(near_tie(s, reqs[u], run_res[u]) for u in differ)
+        check(len(differ) == excused,
+              f"with the table, uids {differ} decide otherwise")
+        router_tiles = eng.stats.router_tiles
+    finally:
+        tiles.set_table_path(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"table": table, "tune_s": tune_s, "checked": checked,
+           "router_tiles": router_tiles, "decisions_differ": len(differ),
+           "near_tie_excused": excused}
+    emit("autotune", **out)
+    return out
+
+
+def checkpoint_phase(torch) -> dict:
+    """tinyllama-1.1b in bf16 on the card saved with ``save_pytree``
+    through the inverse bridge (``bridge.model_tree``) and loaded back
+    onto the card with ``bridge.model_from_checkpoint``: every leaf
+    bit-identical, 4 greedy tokens identical; ``CheckpointManager``
+    keeps the best and the last 2.  In a temporary directory, removed
+    after."""
+    import shutil
+    import tempfile
+    from repro_torch import bridge
+    from repro_torch.checkpoint import CheckpointManager, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+
+    cfg = get_config("tinyllama-1.1b")
+    tmp = tempfile.mkdtemp(prefix="tryage_ckpt_")
+    try:
+        model = init_model(cfg, seed=23, device="cuda")
+        path = os.path.join(tmp, "tinyllama")
+        t0 = time.perf_counter()
+        save_pytree(path, bridge.model_tree(model))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = bridge.model_from_checkpoint(path, cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = model.state_dict(), loaded.state_dict()
+        check(list(a) == list(b), "checkpoint: parameter names differ")
+        same = [n for n in a if a[n].dtype == b[n].dtype
+                and torch.equal(a[n].view(torch.int16) if a[n].dtype ==
+                                torch.bfloat16 else a[n],
+                                b[n].view(torch.int16) if b[n].dtype ==
+                                torch.bfloat16 else b[n])]
+        check(len(same) == len(a), f"checkpoint: leaves differ: "
+                                   f"{sorted(set(a) - set(same))[:5]}")
+        g = torch.Generator(device="cuda").manual_seed(23)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                               generator=g, dtype=torch.int32)
+        toks_a = greedy(torch, model, tokens, 3, "cuda",
+                        kernel="flash_attention")[1]
+        toks_b = greedy(torch, loaded, tokens, 3, "cuda",
+                        kernel="flash_attention")[1]
+        check(torch.equal(toks_a, toks_b),
+              "checkpoint: greedy tokens differ after the round trip")
+        nbytes = sum(os.path.getsize(path + ext) for ext in (".npz", ".json"))
+        del model, loaded, a, b
+        torch.cuda.empty_cache()
+        mgr = CheckpointManager(os.path.join(tmp, "mgr"), keep_last=2)
+        for step, metric in [(1, 0.5), (2, 0.3), (3, 0.4), (4, 0.35)]:
+            mgr.save(step, {"w": torch.tensor(float(step))}, metric=metric)
+        files = sorted(f for f in os.listdir(mgr.dir) if f.startswith("step_"))
+        check(float(mgr.load_best()["w"]) == 2.0
+              and files == [f"step_{n:08d}{e}" for n in (3, 4)
+                            for e in (".json", ".npz")],
+              f"CheckpointManager kept {files}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"config": cfg.name, "dtype": cfg.dtype, "leaves": len(same),
+           "file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+           "greedy_tokens": toks_a.shape[1], "manager_files": files}
+    emit("checkpoint", **out)
+    return out
+
+
+DRYRUN_PAIRS = (("prefill", 4, 512), ("train", 4, 512))
+
+
+def dryrun_phase(torch) -> dict:
+    """``launch.dryrun.run_one`` on the meta device for tinyllama-1.1b
+    at a prefill and a train step of 4 x 512, then the same steps on the
+    card: parameter bytes exact; the predicted peak against
+    ``max_memory_allocated``, the predicted ``dot_flops`` against
+    ``FlopCounterMode`` on the real run (with the kernels' recorded
+    work), and the step's time against the roofline's ``t_bound``
+    (reported, not gated)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.op_costs import KernelLog
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import InputShape
+    from repro_torch.optim.adamw import adamw_init
+
+    arch = "tinyllama-1.1b"
+    cfg = get_config(arch)
+    model = model_lib.init_model(cfg, seed=29, device="cuda")
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    out = {"config": arch}
+    for kind, B, S in DRYRUN_PAIRS:
+        shape = InputShape(f"{kind}_{B}x{S}", S, B, kind)
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, knobs=steps.PerfKnobs(), save=False)
+        dry_s = time.perf_counter() - t0
+        check(rec["status"] == "OK", f"dry run {shape.name}: {rec}")
+        mem = rec["memory"]
+        check(mem["parameter_bytes"] == param_bytes,
+              f"dry run parameter bytes {mem['parameter_bytes']}, the card's "
+              f"{param_bytes}")
+        g = torch.Generator(device="cuda").manual_seed(B * S)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         device="cuda", generator=g,
+                                         dtype=torch.int32)}
+        opt = adamw_init(model) if kind == "train" else None
+
+        def step():
+            if kind == "train":
+                return steps.train_step(model, opt, batch, lr=1e-6,
+                                        device="cuda")
+            return steps.prefill_step(model, batch, device="cuda")
+
+        step()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        with FlopCounterMode(display=False) as fc, KernelLog() as kl:
+            step()
+        torch.cuda.synchronize()
+        kflops, _ = kl.totals()
+        measured_flops = fc.get_total_flops() + kflops
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_s = float(np.median(times))
+        t_bound = rec["roofline"]["t_bound_s"]
+        out[shape.name] = {
+            "dry_run_s": dry_s, "parameter_bytes": param_bytes,
+            "predicted_peak_bytes": mem["peak_bytes_per_device"],
+            "measured_peak_bytes": peak,
+            "peak_ratio": mem["peak_bytes_per_device"] / peak,
+            "predicted_dot_flops": rec["cost"]["dot_flops"],
+            "measured_dot_flops": measured_flops,
+            "flops_ratio": rec["cost"]["dot_flops"] / measured_flops,
+            "kernels_predicted": rec["cost"]["kernels"],
+            "kernels_measured": kl.kernels,
+            "roofline": rec["roofline"], "step_s": step_s,
+            "step_times_s": times, "roofline_share": t_bound / step_s,
+            "model_flops": rec["model_flops"]}
+        del opt, batch
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    emit("dryrun", **out)
+    return out
+
+
 def times_phase(torch, launches_per_run: dict, err: dict,
                 bwd_per_step: int, zoo_per_step: dict,
                 bwd_launches: dict) -> list:
@@ -2967,28 +3373,25 @@ def times_phase(torch, launches_per_run: dict, err: dict,
     rows = [
         ("router_score", lambda: rs_ops.router_score_fused(*sa),
          lambda: rs_ops.router_score_plain(*sa), None,
-         *head_cost(B, d, hh, M, n_c, cascade=False), shape, None),
+         *rs_ops.head_cost(B, d, hh, M, n_c, cascade=False)[::-1], shape,
+         None),
         ("router_cascade", lambda: rc_ops.router_score_cascade_fused(*ca),
          lambda: rc_ops.router_cascade_plain(*ca), None,
-         *head_cost(B, d, hh, M, n_c, cascade=True), shape, None),
+         *rs_ops.head_cost(B, d, hh, M, n_c, cascade=True)[::-1], shape,
+         None),
     ]
     B, S, H, dh = XLSTM_B, XLSTM_S, 4, 1024
     L = min(64, S)
     ml_args = mlstm_inputs(torch, B, S, H, dh, False, seed=2)
     rows.append(("mlstm_scan", lambda: ml_ops.mlstm_chunkwise(*ml_args),
                  lambda: ml_ops.mlstm_chunkwise_plain(*ml_args), None,
-                 # q, k, v, h; C0, C1; n0, n1; i, f; m0, m1
-                 4 * (4 * B * S * H * dh + 2 * B * H * dh * dh
-                      + 2 * B * H * dh + 2 * B * S * H + 2 * B * H),
-                 # per row and chunk: q k^T and (W*S) v, q C and k^T v
-                 B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh),
+                 *ml_ops.forward_cost(B, S, H, dh, L)[::-1],
                  {"B": B, "S": S, "H": H, "dh": dh, "chunk": L}, None))
     # the mLSTM backward at xlstm-1.3b's training shape (2 x 512), as a
     # training step runs it: one chunk over the sequence (the forward
     # writes no states), from a zero state passed as such; no library
     # call computes it
     B, S = 2, 512
-    nc = S // L
     chunk = ml_ops.backward_chunk(S, dh)
     q, k, v, i, f, st = mlstm_inputs(torch, B, S, H, dh, False, seed=3)
     dh_ = torch.randn(B, S, H, dh, device="cuda")
@@ -2999,20 +3402,11 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                  ml_ops.mlstm_chunkwise_bwd(*a, h, d, s, zero_state=True),
                  lambda a=bwd_args, d=dh_:
                  ml_ops.mlstm_chunkwise_grad_plain(*a, d), None,
-                 # q, k, v, h, dh read and dq, dk, dv written; i, f read
-                 # and di, df written; m0 (one chunk: no states)
-                 4 * (8 * B * S * H * dh + 4 * B * S * H + B * H),
-                 # per row, one chunk: q k^T, dh v^T, dS k, dS^T q,
-                 # P'^T dh over the causal pairs (2 dh each)
-                 B * H * 5 * dh * S * (S + 1),
+                 *ml_ops.backward_cost(B, S, H, dh, chunk)[::-1],
                  {"B": B, "S": S, "H": H, "dh": dh, "chunk": chunk}, None))
-    # the design before one chunk, as its yardstick: the forward's chunk
-    # L, the chunk-start states read, and per row and chunk C dnum, G v,
-    # G^T k and the recurrence's (aq)^T dnum (2 L dh^2 each) beside q k^T,
-    # dnum v^T, dS k, dS^T q, P^T dnum (2 L^2 dh each)
-    old_bytes = 4 * (8 * B * S * H * dh + 4 * B * S * H
-                     + B * H * nc * (dh * dh + dh) + B * H)
-    old_flops = B * H * nc * (8 * L * dh * dh + 10 * L * L * dh)
+    # the design before one chunk, as its yardstick: the work of the
+    # chunked path at the forward's chunk L
+    old_flops, old_bytes = ml_ops.backward_cost(B, S, H, dh, L)
     # the forward at the same shape with and without the chunk-start states
     fwd_states = {n: (lambda keep=keep, a=bwd_args: ml_ops._launch(*a, keep))
                   for n, keep in (("with_states", True),
@@ -3033,7 +3427,7 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                  fa_ops.attention_plain(q, k, v, causal=False)),
                 (lambda qh=qh, kh=kh, vh=vh:
                  F.scaled_dot_product_attention(qh, kh, vh)),
-                4 * 4 * Bq * 128 * H * hd, 4 * Bq * H * 128 * 128 * hd,
+                *fa_ops.forward_cost(q, k, False, 0)[::-1],
                 {"B": Bq, "H": H, "S": 128, "hd": hd, "causal": False},
                 (lambda q=q, k=k, v=v, qh=qh, kh=kh, vh=vh: float((
                     F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
@@ -3059,9 +3453,7 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                 (lambda oh=oh, qh=qh, kh=kh, vh=vh, doh=doh:
                  torch.autograd.grad(oh, (qh, kh, vh), doh,
                                      retain_graph=True)),
-                # q, k, v, dO and the log-sum-exp read; dQ, dK, dV written
-                7 * 4 * Bq * 128 * H * hd + 4 * Bq * H * 128,
-                10 * Bq * H * 128 * 128 * hd,
+                *fa_ops.backward_cost(q, k, False, 0)[::-1],
                 {"B": Bq, "H": H, "S": 128, "hd": hd, "causal": False},
                 (lambda q=q, k=k, v=v, do=do, oh=oh, qh=qh, kh=kh, vh=vh,
                  doh=doh: max(float((a.transpose(1, 2) - w).abs().max())
@@ -3129,17 +3521,6 @@ def times_phase(torch, launches_per_run: dict, err: dict,
     return kernels
 
 
-def attention_pairs(S, causal, window) -> int:
-    """(query, key) pairs that the masks leave, for S queries over S keys:
-    the work a causal or window call's data needs."""
-    total = 0
-    for row in range(S):
-        lo = max(0, row - window + 1) if window > 0 else 0
-        hi = row + 1 if causal else S
-        total += max(0, hi - lo)
-    return total
-
-
 def zoo_attention_times(torch, F, fa_ops) -> list:
     """The attention kernel at the zoo decoders' bf16 prefill shapes:
     CUDA events and profiler device time beside the plain version,
@@ -3184,8 +3565,7 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
 
         ref = plain().float()
         lib_ref = plain(softcap=0.0).float() if softcap else ref
-        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-        flops = 4 * B * H * hd * attention_pairs(S, causal, window)
+        flops, nbytes = fa_ops.forward_cost(q, k, causal, window)
         bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
         lib_k = profiled_kernels(torch, sdpa)
         out.append({
@@ -3248,10 +3628,7 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
             return torch.autograd.grad(oh, (qh, kh, vh), doh,
                                        retain_graph=True)
 
-        # q, dO, dQ at q's size; k, v, dK, dV at k's; lse in f32
-        nbytes = 2 * (3 * B * S * H * hd + 4 * B * S * KV * hd) \
-            + 4 * B * H * S
-        flops = 10 * B * H * hd * attention_pairs(S, causal, window)
+        flops, nbytes = fa_ops.backward_cost(q, k, causal, window)
         bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
         lib_k = profiled_kernels(torch, sdpa, iters=5, host=False)
         out.append({
@@ -3271,20 +3648,6 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
         del q, k, v, do, lse, qh, kh, vh, oh, doh, mask
         torch.cuda.empty_cache()
     return out
-
-
-def head_cost(B, d, hh, M, n_c, cascade) -> tuple[int, int]:
-    """(bytes, f32 operations) of one router-head call: weights, rows
-    and outputs moved once; both layers' products and the constraint
-    add."""
-    heads = 2 if cascade else 1
-    head_bytes = 4 * (d * hh + hh + hh * M + M)
-    io_bytes = 4 * (B * d + n_c * M + B * n_c + B * M + B)
-    if cascade:     # sigma, esc, ladder_pos
-        io_bytes += 4 * (B * M + B + M)
-    head_flops = 2 * B * d * hh + 2 * B * hh * M
-    return heads * head_bytes + io_bytes, (heads * head_flops
-                                           + 2 * B * n_c * M)
 
 
 def launch_floor(torch, plan: dict) -> dict:
@@ -3319,7 +3682,8 @@ def router_buckets(torch, rs_ops, rc_ops, d, hh, M, n_c) -> list:
                 ("router_cascade", rc_ops.router_score_cascade_fused,
                  CASCADE_ARGS, True)):
             call = (lambda fn=fn, a=[t[k] for k in args]: fn(*a))
-            bms, _ = bound_ms(*head_cost(B, d, hh, M, n_c, cascade))
+            bms, _ = bound_ms(*rs_ops.head_cost(B, d, hh, M, n_c,
+                                                cascade)[::-1])
             plan = (rc_ops.decision_plan(B, d, hh) if cascade
                     else rs_ops.decision_plan(B, d, hh))
             row[name] = {"ms": events_ms(torch, call),
@@ -3349,6 +3713,10 @@ def main() -> int:
     setup = main_setup(torch)
     main, run_res = main_path_phase(torch, setup)
     serve_path_phase(torch, setup, run_res, main, info["nvidia_smi"])
+    sanitize_phase(torch, setup, run_res)
+    autotune_phase(torch, setup, run_res)
+    checkpoint_phase(torch)
+    dryrun_phase(torch)
     xlstm, corpus = xlstm_serve_phase(torch)
     xlstm_crosscheck_phase(torch, corpus)
     zoo_serve_phase(torch)

@@ -19,7 +19,13 @@ structural:
 
 ``model_state`` and ``router_state`` map a tree, or a tree of its
 gradients, to the port's parameter names, so tests can hold gradients
-and trained weights leaf by leaf.
+and trained weights leaf by leaf; ``model_tree`` and ``router_tree``
+go the other way, from a port module to the JAX package's tree (layers
+restacked into ``units.l{j}`` along the unit axis, then ``rem.l{j}``),
+so a checkpoint the port saves (``checkpoint.save_pytree``) loads into
+the JAX package's model.  ``model_from_checkpoint`` and
+``router_from_checkpoint`` load such a checkpoint, saved by either
+package, into the port.
 
 Loading is strict: a missing or extra leaf, or a shape that differs,
 raises.
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.checkpoint import load_pytree
 from repro_torch.core.library import ExpertSpec, ModelLibrary
 from repro_torch.core.router import Router, RouterConfig
 from repro_torch.device import resolve_device
@@ -47,7 +54,8 @@ def _flatten(tree, prefix=""):
         if isinstance(v, dict):
             yield from _flatten(v, f"{prefix}{k}.")
         else:
-            yield f"{prefix}{k}", np.asarray(v)
+            yield f"{prefix}{k}", v if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
 
 
 def model_state(tree: dict) -> dict:
@@ -71,7 +79,9 @@ def model_state(tree: dict) -> dict:
     return state
 
 
-def _tensor(arr: np.ndarray) -> torch.Tensor:
+def _tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().clone()
     arr = np.array(arr, copy=True)
     if arr.dtype.name == "bfloat16":   # ml_dtypes' type: torch reads its bits
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -90,8 +100,9 @@ def _load(module: nn.Module, state: dict) -> None:
         if tuple(arr.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, the port "
                              f"has {tuple(own[name].shape)}")
-        tensors[name] = _tensor(arr)
-    module.load_state_dict(tensors, strict=True)
+        tensors[name] = _tensor(arr).to(own[name].dtype)
+    # the module was built on meta: its parameters take these tensors
+    module.load_state_dict(tensors, strict=True, assign=True)
 
 
 def _fields(cls, obj):
@@ -118,7 +129,8 @@ def model_config_from(cfg) -> ModelConfig:
 def model_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
     """A ``Model`` holding the weights of a JAX model tree."""
     dev = resolve_device(device)
-    model = Model(cfg, torch.Generator().manual_seed(0))
+    with torch.device("meta"):     # shapes only: nothing drawn
+        model = Model(cfg, None)
     _load(model, model_state(tree))
     return model.to(dev)
 
@@ -127,8 +139,8 @@ def router_from_jax(tree: dict, rc: RouterConfig, device=None) -> Router:
     """A ``Router`` holding the weights of a JAX router tree (with its
     ``unc`` head when the tree has one)."""
     dev = resolve_device(device)
-    router = Router(rc, torch.Generator().manual_seed(0),
-                    uncertainty="unc" in tree)
+    with torch.device("meta"):
+        router = Router(rc, None, uncertainty="unc" in tree)
     _load(router, router_state(tree))
     return router.to(dev)
 
@@ -141,6 +153,65 @@ def router_state(tree: dict) -> dict:
         if head in tree:
             state.update((f"{head}.{k}", v) for k, v in _flatten(tree[head]))
     return state
+
+
+def _put(tree: dict, name: str, value) -> None:
+    *path, leaf = name.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def model_tree(model: Model) -> dict:
+    """A port model's parameters as the JAX package's tree (the inverse
+    of ``model_state``): CPU tensors, the full units' layers stacked
+    along a leading unit axis into ``units.l{j}``, the remainder layers
+    as ``rem.l{j}``."""
+    cfg = model.cfg
+    P = len(cfg.layer_pattern)
+    U = cfg.num_layers // P
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        part, _, rest = name.partition(".")
+        if part != "layers":
+            _put(tree, name, t)
+            continue
+        i, _, leaf = rest.partition(".")
+        u, j = divmod(int(i), P)
+        if u < U:
+            stacks.setdefault(f"units.l{j}.{leaf}", [None] * U)[u] = t
+        else:
+            _put(tree, f"rem.l{int(i) - U * P}.{leaf}", t)
+    for name, parts in stacks.items():
+        _put(tree, name, torch.stack(parts))
+    return tree
+
+
+def router_tree(router: Router) -> dict:
+    """A port router's parameters as the JAX package's tree (the
+    inverse of ``router_state``): ``encoder``, ``head`` and, when the
+    router has one, ``unc``."""
+    tree = {"encoder": model_tree(router.encoder)}
+    for name, t in router.state_dict().items():
+        part, _, leaf = name.partition(".")
+        if part != "encoder":
+            _put(tree, f"{part}.{leaf}", t.detach().cpu())
+    return tree
+
+
+def model_from_checkpoint(path: str, cfg: ModelConfig, device=None) -> Model:
+    """A ``Model`` holding a model checkpoint (``path`` without its
+    ``.npz``/``.json``) saved by either package."""
+    return model_from_jax(load_pytree(path), cfg, device)
+
+
+def router_from_checkpoint(path: str, rc: RouterConfig,
+                           device=None) -> Router:
+    """A ``Router`` holding a router checkpoint saved by either
+    package."""
+    return router_from_jax(load_pytree(path), rc, device)
 
 
 def library_from_jax(library, device=None) -> ModelLibrary:

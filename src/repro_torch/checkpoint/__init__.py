@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.store import (CheckpointManager, load_pytree,
+                                          save_pytree)
+
+__all__ = ["save_pytree", "load_pytree", "CheckpointManager"]

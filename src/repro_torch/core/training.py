@@ -36,6 +36,7 @@ from repro_torch.core.router import (Router, RouterConfig,
 from repro_torch.data.batching import BatchIterator
 from repro_torch.data.corpus import DomainCorpus
 from repro_torch.device import module_device, resolve_device
+from repro_torch.kernels import sanitize
 from repro_torch.models.model import Model, count_params, init_model, lm_loss
 from repro_torch.optim import (OptState, adamw_init, adamw_update,
                                exp_decay_schedule)
@@ -61,6 +62,7 @@ def to_device(batch: dict, device) -> dict:
 
 # ----------------------------------------------------------- experts
 
+@sanitize.owns
 def expert_step(model: Model, opt: OptState, batch: dict, *, lr,
                 weight_decay=1e-5) -> tuple[OptState, torch.Tensor]:
     """One training step of an expert: forward, ``lm_loss``, backward
@@ -148,6 +150,7 @@ def router_loss(params: Router, rc: RouterConfig, batch, target_losses,
     return loss
 
 
+@sanitize.owns
 def router_step(router: Router, opt: OptState, rc: RouterConfig, toks,
                 targets, *, lr, weight_decay=1e-5,
                 divergence="mse") -> tuple[OptState, torch.Tensor]:
@@ -162,6 +165,7 @@ def router_step(router: Router, opt: OptState, rc: RouterConfig, toks,
 
 
 @torch.no_grad()
+@sanitize.owns
 def map_chunks(fn, tokens: np.ndarray, device, B=256) -> np.ndarray:
     """``fn`` over ``tokens`` (N, S) in chunks of ``B`` rows on
     ``device``, without grad; the outputs concatenated as numpy."""
@@ -220,6 +224,7 @@ def _selected(params: Router, rc: RouterConfig, toks, expert_idx):
     return pred.gather(1, idx)[:, 0]
 
 
+@sanitize.owns
 def router_prediction_error(params: Router, rc: RouterConfig, toks,
                             expert_idx, observed):
     """Mean |L-hat[chosen] - L_observed| over a feedback batch — the
@@ -266,6 +271,7 @@ def make_router_update_step(rc: RouterConfig, *, lr: float = 1e-2,
                     p.copy_(ema * w + (1.0 - ema) * p)
         return new
 
+    @sanitize.owns
     def step(params: Router, toks, expert_idx, observed):
         obs = torch.as_tensor(observed, dtype=torch.float32,
                               device=toks.device)

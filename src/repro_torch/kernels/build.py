@@ -55,9 +55,10 @@ SIGNATURES = {
     # | pred sigma choice esc | B d hh M n_c threads k_groups | stream
     "tryage_router_cascade": [_P] * 12 + [_P] * 4 + [_I] * 7 + [_P],
     # q k v | o lse (null: not written) | B S T H KV hd causal window
-    # | softcap scale | bf16 (0: f32 inputs) | stream
+    # | softcap scale | bf16 (0: f32 inputs) warps (0: the default)
+    # | stream
     "tryage_flash_attention": [_P] * 3 + [_P] * 2 + [_I] * 8 + [_F] * 2
-    + [_I] + [_P],
+    + [_I] * 2 + [_P],
     # q k v dO lse | rows (workspace, null on one launch) dq dk dv
     # | B S T H KV hd causal window | softcap scale | bf16 | stream
     "tryage_flash_attention_bwd": [_P] * 5 + [_P] * 4 + [_I] * 8

@@ -35,7 +35,8 @@
 //   ulp of the plain version after o is rounded to bf16.
 // Design:
 // * One warp owns 16 query rows.  A block holds 1, 2 or 4 warps: the
-//   most that still gives at least one block per SM (132) for this
+//   caller's choice (the wrapper's launch-config table), or by default
+//   the most that still gives at least one block per SM (132) for this
 //   call's B * H * ceil(S / 16) * column-splits row tiles.  The grid is
 //   (query tiles, B * H, column splits).
 // * hd above 128: O's accumulator (4 registers per 8 columns a lane)
@@ -78,25 +79,27 @@ namespace tryage {
 int flash_attention_bf16(int kd, const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int S, int T, int H,
                          int KV, int causal, int window, float softcap,
-                         float scale, cudaStream_t stream);
+                         float scale, int warps, cudaStream_t stream);
 }  // namespace tryage
 
 // bf16: 0 for f32 inputs and output, 1 for bf16 (lse stays f32).
+// warps: a block's warps, 1, 2 or 4, or 0 for the default (see Design).
 extern "C" int tryage_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int S, int T, int H, int KV,
                                       int hd, int causal, int window,
                                       float softcap, float scale, int bf16,
-                                      void* stream) {
+                                      int warps, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (T <= 0 || hd % 8 || hd < 8 || hd > 8 * kMaxKD ||
-      (bf16 != 0 && bf16 != 1))
+      (bf16 != 0 && bf16 != 1) ||
+      (warps != 0 && warps != 1 && warps != 2 && warps != kMaxWarps))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return tryage::flash_attention_bf16(hd / 8, q, k, v, o, lse, B, S, T, H,
                                         KV, causal, window, softcap, scale,
-                                        st);
+                                        warps, st);
   return dispatch<float, 1>(hd / 8, q, k, v, o, lse, B, S, T, H, KV, causal,
-                            window, softcap, scale, st);
+                            window, softcap, scale, warps, st);
 }

@@ -315,17 +315,22 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
 
 namespace {
 
+// warps: a block's warps (1, 2 or 4, e.g. from the launch-config table
+// through the wrapper), or 0 for the most that still gives every SM a
+// block.
 template <typename Tin, int KD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int T, int H, int KV, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           float softcap, float scale, int warps, cudaStream_t stream) {
   using G = Geometry<Tin, KD>;
   const size_t smem = G::smem_bytes();
   cudaError_t err = tryage::allow_smem(flash_attention_kernel<Tin, KD>, smem);
   if (err != cudaSuccess) return (int)err;
-  const long row_tiles = (long)B * H * G::NC * ((S + 15) / 16);
-  int warps = kMaxWarps;
-  while (warps > 1 && (row_tiles + warps - 1) / warps < kSMs) warps /= 2;
+  if (warps == 0) {
+    const long row_tiles = (long)B * H * G::NC * ((S + 15) / 16);
+    warps = kMaxWarps;
+    while (warps > 1 && (row_tiles + warps - 1) / warps < kSMs) warps /= 2;
+  }
   dim3 grid((S + 16 * warps - 1) / (16 * warps), B * H, G::NC);
   flash_attention_kernel<Tin, KD><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const Tin*>(q), static_cast<const Tin*>(k),
@@ -337,15 +342,16 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 template <typename Tin, int KD>
 int dispatch(int kd, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int S, int T, int H, int KV, int causal,
-             int window, float softcap, float scale, cudaStream_t stream) {
+             int window, float softcap, float scale, int warps,
+             cudaStream_t stream) {
   if constexpr (KD > kMaxKD) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (kd == KD)
       return launch<Tin, KD>(q, k, v, o, lse, B, S, T, H, KV, causal, window,
-                             softcap, scale, stream);
+                             softcap, scale, warps, stream);
     return dispatch<Tin, KD + 1>(kd, q, k, v, o, lse, B, S, T, H, KV, causal,
-                                 window, softcap, scale, stream);
+                                 window, softcap, scale, warps, stream);
   }
 }
 

@@ -9,9 +9,10 @@ namespace tryage {
 int flash_attention_bf16(int kd, const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int S, int T, int H,
                          int KV, int causal, int window, float softcap,
-                         float scale, cudaStream_t stream) {
+                         float scale, int warps, cudaStream_t stream) {
   return dispatch<__nv_bfloat16, 1>(kd, q, k, v, o, lse, B, S, T, H, KV,
-                                    causal, window, softcap, scale, stream);
+                                    causal, window, softcap, scale, warps,
+                                    stream);
 }
 
 }  // namespace tryage

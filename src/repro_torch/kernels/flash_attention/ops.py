@@ -8,7 +8,13 @@ Pallas ``_attn_kernel`` of ``src/repro/kernels/flash_attention/kernel.py``
 — see the source for the design and what bounds it); on a CPU tensor it
 runs ``attention_plain``.  The kernel reads the model layout directly
 and maps GQA heads by index, so neither the transpose to (BH, S, hd)
-nor the K/V repeat of the JAX wrapper touches device memory.
+nor the K/V repeat of the JAX wrapper touches device memory.  On meta
+tensors (the dry run) it gives the outputs' shapes; inside a counted
+region (``launch.op_costs``) each call records ``forward_cost`` or
+``backward_cost``; under the sanitizer (``kernels.sanitize``) the
+forward's inputs, window and output are checked.  The forward's warps a
+block are ``forward_plan``'s (a launch-config table, ``kernels.tiles``,
+may set them).
 
 ``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
 which has no Pallas counterpart: the JAX package differentiates its XLA
@@ -34,13 +40,87 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sanitize, tiles
+from repro_torch.launch import op_costs
 
 NEG_INF = -2.3819763e38  # the Pallas kernel's mask fill
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
+WARPS = (1, 2, 4)     # warps a forward block can hold (kMaxWarps = 4)
+SMS = 132             # the H100's SMs (kSMs in csrc/flash_attention.cuh)
+
+
+def column_splits(hd: int) -> int:
+    """Blocks that share a query tile's output columns (``Geometry::NC``
+    in ``csrc/flash_attention.cuh``): 1 up to head_dim 128, else 2."""
+    kd = hd // 8
+    ko = kd if kd <= 16 else (kd + 1) // 2
+    return -(-kd // ko)
+
+
+def default_warps(B: int, S: int, H: int, hd: int) -> int:
+    """The forward kernel's own choice of warps a block (``warps`` 0):
+    the most of 1, 2 or 4 that still gives every SM a block."""
+    row_tiles = B * H * column_splits(hd) * -(-S // 16)
+    warps = WARPS[-1]
+    while warps > 1 and -(-row_tiles // warps) < SMS:
+        warps //= 2
+    return warps
+
+
+def forward_plan(B: int, S: int, H: int, hd: int,
+                 warps: int | None = None) -> dict:
+    """The forward kernel's launch geometry: ``warps`` a block (16 query
+    rows each), unset: the launch-config table's entry at batch ``B``
+    (``kernels.tiles``) where it is one of ``WARPS``, else 0, the
+    kernel's own choice (``default_warps``).  ``launch_warps`` is what
+    the wrapper passes to the kernel, ``warps`` what runs."""
+    if warps is None:
+        warps = tiles.tile_for("flash_attention", B, "warps", 0)
+        if warps not in WARPS:
+            warps = 0
+    elif warps not in (0, *WARPS):
+        raise ValueError(f"flash_attention: warps {warps} not in "
+                         f"{(0, *WARPS)}")
+    eff = warps or default_warps(B, S, H, hd)
+    return {"launch_warps": warps, "warps": eff,
+            "grid": (-(-S // (16 * eff)), B * H, column_splits(hd))}
+
+
+def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the masks leave for S queries over T keys
+    (query i sees key j <= i when causal, j > i - window with a window):
+    the work a masked call's data needs."""
+    row = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, row - window + 1) if window > 0 else np.zeros_like(row)
+    hi = np.minimum(row + 1, T) if causal else np.full_like(row, T)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def forward_cost(q, k, causal, window, with_lse=False) -> tuple[int, int]:
+    """(operations, bytes) of one forward call: q k^T and P V over the
+    pairs the masks leave (4 hd a head and pair); q, k, v read and o
+    written once in their type, and the f32 log-sum-exp when written."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    nbytes = q.element_size() * (2 * B * S * H * hd + 2 * B * T * KV * hd)
+    if with_lse:
+        nbytes += 4 * B * H * S
+    return 4 * B * H * hd * attention_pairs(S, T, causal, window), nbytes
+
+
+def backward_cost(q, k, causal, window) -> tuple[int, int]:
+    """(operations, bytes) of one backward call: its five products over
+    the pairs the masks leave (10 hd a head and pair); q, k, v, dO and
+    the f32 log-sum-exp read, dQ, dK, dV written once."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    nbytes = (q.element_size() * (3 * B * S * H * hd + 4 * B * T * KV * hd)
+              + 4 * B * H * S)
+    return 10 * B * H * hd * attention_pairs(S, T, causal, window), nbytes
 
 
 def block_keys(hd: int) -> int:
@@ -110,20 +190,26 @@ def _check_head_dim(hd):
                          f"of 8 and at most {MAX_HEAD_DIM}")
 
 
-def _forward(q, k, v, causal, window, softcap, with_lse):
-    """Launch the forward kernel: (o, lse or None)."""
+def _forward(q, k, v, causal, window, softcap, with_lse, warps=None):
+    """Launch the forward kernel: (o, lse or None); on meta tensors
+    their shapes alone."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     _check_head_dim(hd)
-    q, k, v = _kernel_inputs(q, k, v)
+    plan = forward_plan(B, S, H, hd, warps)
+    if q.device.type != "meta":
+        q, k, v = _kernel_inputs(q, k, v)
     o = torch.empty_like(q)
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":
+        return o, lse
     build.launch(
         "tryage_flash_attention", q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
         B, S, T, H, KV, hd, int(causal), int(window), float(softcap),
-        1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16))
+        1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+        plan["launch_warps"])
     flash_attention.launches += 1
     return o, lse
 
@@ -144,9 +230,18 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
     (B, H, S) f32 and the output gradient ``do`` (q's type):
     ``csrc/flash_attention_bwd.cu`` on CUDA tensors (``backward_launches``:
     one launch, or a first for the row sums and dQ, then dK and dV), the
-    plain version's autograd on CPU ones (``lse`` unused there).  The
-    gradients take the inputs' type."""
+    plain version's autograd on CPU ones (``lse`` unused there), the
+    gradients' shapes alone on meta ones.  The gradients take the
+    inputs' type."""
     _check(q, k, v)
+    return op_costs.kernel_call(
+        "flash_attention_bwd", lambda: backward_cost(q, k, causal, window),
+        _backward, q, k, v, lse, do, causal, window, softcap)
+
+
+def _backward(q, k, v, lse, do, causal, window, softcap):
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cpu":
         return attention_grad_plain(q, k, v, do, causal=causal,
                                     window=window, softcap=softcap)
@@ -177,11 +272,11 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel (keeping its log-sum-exp) and the backward
-    kernel as one differentiable op on CUDA tensors."""
+    kernel as one differentiable op on CUDA (or meta) tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        o, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
+    def forward(ctx, q, k, v, causal, window, softcap, warps):
+        o, lse = _forward(q, k, v, causal, window, softcap, True, warps)
         ctx.save_for_backward(q, k, v, lse)
         ctx.masks = (causal, window, softcap)
         return o
@@ -192,24 +287,46 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, causal=causal,
                                          window=window, softcap=softcap)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    warps=None):
     """Attention over (B, S, H, hd) queries and (B, T, KV, hd) keys and
-    values; the kernel on CUDA tensors, the plain version on CPU ones.
-    On CUDA tensors that need a gradient it runs as ``_FlashAttention``,
+    values; the kernel on CUDA tensors, the plain version on CPU ones,
+    the output's shape alone on meta ones (the dry run).  On CUDA or
+    meta tensors that need a gradient it runs as ``_FlashAttention``,
     whose backward is ``flash_attention_bwd``; otherwise the forward
-    kernel alone, with no log-sum-exp written."""
+    kernel alone, with no log-sum-exp written.  ``warps``: the launch
+    geometry (``forward_plan``; unset: the table's, else the kernel's
+    own).  Under the sanitizer q, k, v, the window and the output are
+    checked after the call."""
     _check(q, k, v)
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    lse = grad and q.device.type != "cpu"
+    out = op_costs.kernel_call(
+        "flash_attention", lambda: forward_cost(q, k, causal, window, lse),
+        _attention, q, k, v, causal, window, softcap, warps, grad)
+    if sanitize.wrapper_checks():
+        T = k.shape[1]
+        sanitize.run_checks(
+            sanitize.check_finite("flash_attention", "input", q, k, v),
+            # window == 0 disables banding; valid band widths are 0..T
+            sanitize.check_in_range("flash_attention", "window", window, 0,
+                                    T + 1),
+            sanitize.check_finite("flash_attention", "output", out))
+    return out
+
+
+def _attention(q, k, v, causal, window, softcap, warps, grad):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, softcap)
-    return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+    if grad:
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, warps)
+    return _forward(q, k, v, causal, window, softcap, False, warps)[0]
 
 
 flash_attention.launches = 0

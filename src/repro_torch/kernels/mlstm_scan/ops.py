@@ -22,8 +22,14 @@ Beside it, the plain versions:
 
 The kernel's chunk length is ``pick_chunk(S, 64)``, the largest divisor
 of S not above 64, as the JAX model path takes it, so any prompt length
-runs.  ``mlstm_chunkwise_plain`` also takes other chunk lengths, as the
-JAX reference does.
+runs; a launch-config table (``kernels.tiles``) or the caller may set
+another that the kernel takes (``forward_chunk``), and the backward then
+takes the forward's.  ``mlstm_chunkwise_plain`` also takes other chunk
+lengths, as the JAX reference does.  On meta tensors (the dry run) the
+wrapper gives the outputs' shapes and, inside a counted region
+(``launch.op_costs``), records ``forward_cost`` / ``backward_cost``.
+Under the sanitizer (``kernels.sanitize``) its inputs and outputs are
+checked after the call.
 
 The gradient: when grad mode is on and q, k, v or a gate needs one,
 ``mlstm_chunkwise`` runs as ``_MlstmChunkwise`` (a
@@ -32,7 +38,7 @@ backward kernel ``csrc/mlstm_scan_bwd.cu`` (``mlstm_chunkwise_bwd``; no
 Pallas counterpart: the JAX package differentiates
 ``_mlstm_cell_chunkwise`` with XLA); on CPU tensors the plain version
 and ``mlstm_chunkwise_grad_plain``, autograd of it.  The backward takes
-its own chunk, ``backward_chunk(S, dh)``: the whole sequence where that
+its own chunk, ``backward_chunk(S, dh, L)``: the whole sequence where that
 takes fewer operations (no state products, and the forward writes no
 states), else the forward's chunk, from C and n at each chunk's start,
 which the forward kernel then writes.  A caller that built the initial
@@ -52,7 +58,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sanitize, tiles
+from repro_torch.launch import op_costs
 from repro_torch.models.scan_utils import pick_chunk
 
 MAX_CHUNK = 64        # the kernel's in-chunk tile is 64 x 64
@@ -64,16 +71,65 @@ def log_sigmoid(x):
     return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
 
 
-def backward_chunk(S: int, dh: int) -> int:
+def forward_chunk(B: int, S: int, chunk: int | None = None) -> int:
+    """The forward kernel's chunk L for batch ``B`` over S steps:
+    ``chunk``, or unset the launch-config table's entry at ``B``
+    (``kernels.tiles``) where the kernel takes it (at most
+    ``MAX_CHUNK``, dividing S), else ``pick_chunk(S, MAX_CHUNK)``."""
+    if chunk is None:
+        default = pick_chunk(S, MAX_CHUNK)
+        chunk = tiles.tile_for("mlstm_scan", B, "chunk", default)
+        return chunk if valid_chunk(chunk, S) else default
+    if not valid_chunk(chunk, S):
+        raise ValueError(f"mlstm_chunkwise: chunk {chunk} must divide S={S} "
+                         f"and be at most {MAX_CHUNK}")
+    return chunk
+
+
+def valid_chunk(L: int, S: int) -> bool:
+    """Whether the forward kernel takes chunk ``L`` over S steps."""
+    return 1 <= L <= MAX_CHUNK and S % L == 0
+
+
+def backward_chunk(S: int, dh: int, L: int | None = None) -> int:
     """The backward kernel's chunk for S steps at head dim dh: S (one
     chunk, so the state's gradient and its products drop out) or the
-    forward's chunk L (``pick_chunk(S, MAX_CHUNK)``), whichever takes
-    fewer operations.  A row costs 5 S^2 dh with one chunk (the five
-    in-chunk products, causal) against S (8 dh^2 + 5 L dh) with chunks
-    of L (four state products of 2 L dh^2 a chunk beside the five), so
-    one chunk wins up to S of about 1.6 dh + L."""
-    L = pick_chunk(S, MAX_CHUNK)
+    forward's chunk L (default ``pick_chunk(S, MAX_CHUNK)``), whichever
+    takes fewer operations.  A row costs 5 S^2 dh with one chunk (the
+    five in-chunk products, causal) against S (8 dh^2 + 5 L dh) with
+    chunks of L (four state products of 2 L dh^2 a chunk beside the
+    five), so one chunk wins up to S of about 1.6 dh + L."""
+    if L is None:
+        L = pick_chunk(S, MAX_CHUNK)
     return S if 5 * S * dh <= 8 * dh * dh + 5 * L * dh else L
+
+
+def forward_cost(B, S, H, dh, L, keep_states=False) -> tuple[int, int]:
+    """(f32 operations, bytes) of one forward call at chunk L: per row
+    and chunk q k^T and (W * S) v (2 L^2 dh each), q C and k^T v (2 L
+    dh^2 each); q, k, v, h, both states, i, f and m moved once, and the
+    chunk-start states when written."""
+    nbytes = 4 * (4 * B * S * H * dh + 2 * B * H * dh * dh + 2 * B * H * dh
+                  + 2 * B * S * H + 2 * B * H)
+    if keep_states:
+        nbytes += 4 * B * H * (S // L) * (dh * dh + dh + 1)
+    return (B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh), nbytes)
+
+
+def backward_cost(B, S, H, dh, L) -> tuple[int, int]:
+    """(f32 operations, bytes) of one backward call at its chunk L
+    (``backward_chunk``).  One chunk (L = S): per row q k^T, dh v^T,
+    dS k, dS^T q and P'^T dh over the causal pairs (2 dh each); q, k,
+    v, h, dh read and dq, dk, dv written, i, f read and di, df written,
+    m0.  Chunks of L: per row and chunk those five over the whole L x L
+    tile and C dnum, G v, G^T k and (a q)^T dnum (2 L dh^2 each), the
+    chunk-start states read too."""
+    io = 8 * B * S * H * dh + 4 * B * S * H + B * H
+    if L == S:
+        return B * H * 5 * dh * S * (S + 1), 4 * io
+    nc = S // L
+    return (B * H * nc * (8 * L * dh * dh + 10 * L * L * dh),
+            4 * (io + B * H * nc * (dh * dh + dh)))
 
 
 def mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state, chunk=MAX_CHUNK):
@@ -180,14 +236,24 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k, v, i_pre, f_pre, state, keep_states):
-    """The forward kernel: (h, {"C", "n", "m"}, and with ``keep_states``
-    C, n and m at each chunk's start (Cst, nst, mst), else None)."""
+def _launch(q, k, v, i_pre, f_pre, state, keep_states, chunk=None):
+    """The forward kernel at chunk ``forward_chunk(B, S, chunk)``: (h,
+    {"C", "n", "m"}, and with ``keep_states`` C, n and m at each chunk's
+    start (Cst, nst, mst), else None); on meta tensors their shapes
+    alone."""
     B, S, H, dh = q.shape
     if dh % 8 or dh > MAX_HEAD_DIM:
         raise ValueError(f"mlstm_chunkwise: head_dim {dh} must be a multiple "
                          f"of 8 and at most {MAX_HEAD_DIM}")
-    L = pick_chunk(S, MAX_CHUNK)
+    L = forward_chunk(B, S, chunk)
+    states = None
+    if keep_states:
+        states = (torch.empty(B, H, S // L, dh, dh, device=q.device),
+                  torch.empty(B, H, S // L, dh, device=q.device),
+                  torch.empty(B, H, S // L, device=q.device))
+    if q.device.type == "meta":
+        return (torch.empty_like(q),
+                {n: torch.empty_like(t) for n, t in state.items()}, states)
     # the kernel stages rows with 16-byte copies: 16-byte aligned inputs
     args = [_aligned(t.detach().contiguous())
             for t in (q, k, v, i_pre, f_pre, state["C"], state["n"],
@@ -197,11 +263,6 @@ def _launch(q, k, v, i_pre, f_pre, state, keep_states):
     lib = build.library()
     work = torch.empty(lib.size("tryage_mlstm_scan_workspace", B, S, H, L),
                        dtype=torch.float32, device=q.device)
-    states = None
-    if keep_states:
-        states = (torch.empty(B, H, S // L, dh, dh, device=q.device),
-                  torch.empty(B, H, S // L, dh, device=q.device),
-                  torch.empty(B, H, S // L, device=q.device))
     build.launch(
         "tryage_mlstm_scan", q.device, *(t.data_ptr() for t in args),
         h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
@@ -226,27 +287,41 @@ def mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh,
 
 
 def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states=None,
-                        zero_state=False):
+                        zero_state=False, chunk=None):
     """(dq, dk, dv, di, df) of the scan's h from ``state``, given h (the
     forward's output) and its gradient ``dh``: ``csrc/mlstm_scan_bwd.cu``
-    on CUDA tensors, at the chunk ``backward_chunk(S, dh)``: with one
+    on CUDA tensors, at the chunk ``backward_chunk(S, dh, chunk)``: with one
     chunk from ``state`` (``states`` None), else from ``states`` =
     (Cst, nst, mst), C, n and m at each chunk's start as the forward
     kernel writes them with ``keep_states``.  ``zero_state``: the caller built
     ``state`` as zeros, so the products that read it are skipped (never
-    read off the tensor: that would wait on the card).
+    read off the tensor: that would wait on the card).  ``chunk``: the
+    forward's chunk (default ``pick_chunk(S, MAX_CHUNK)``), which the
+    backward takes where it takes chunks.
     ``mlstm_chunkwise_grad_plain`` on CPU tensors, which needs neither h
-    nor ``states``."""
+    nor ``states``; the gradients' shapes alone on meta ones."""
     _check(q, k, v, i_pre, f_pre, state)
+    B, S, H, d = q.shape
+    L = backward_chunk(S, d, chunk)
+    return op_costs.kernel_call(
+        "mlstm_scan_bwd", lambda: backward_cost(B, S, H, d, L), _backward,
+        q, k, v, i_pre, f_pre, state, h, dh, states, zero_state, L,
+        chunk or MAX_CHUNK)
+
+
+def _backward(q, k, v, i_pre, f_pre, state, h, dh, states, zero_state, L,
+              fwd_chunk):
+    if q.device.type == "meta":
+        return tuple(torch.empty_like(t) for t in (q, k, v, i_pre, f_pre))
     if q.device.type == "cpu":
-        return mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh)
+        return mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh,
+                                          fwd_chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise_bwd: no kernel for {q.device}")
     if h.shape != q.shape or dh.shape != q.shape or dh.dtype != q.dtype:
         raise ValueError(f"mlstm_chunkwise_bwd: h {tuple(h.shape)}, dh "
                          f"{tuple(dh.shape)} do not fit q {tuple(q.shape)}")
     B, S, H, d = q.shape
-    L = backward_chunk(S, d)
     if L == S:
         if states is not None:
             raise ValueError("mlstm_chunkwise_bwd: one chunk reads the "
@@ -380,23 +455,23 @@ def mlstm_chunkwise_bwd_explicit(q, k, v, i_pre, f_pre, state, dh,
 
 class _MlstmChunkwise(torch.autograd.Function):
     """The scan as one differentiable op from a state that takes no
-    gradient: the forward kernel (writing the chunk-start states when
-    the backward takes chunks shorter than the sequence) and the backward
-    kernel on CUDA tensors, the plain version and its autograd on CPU
-    ones."""
+    gradient: the forward kernel at chunk L (writing the chunk-start
+    states when the backward takes chunks shorter than the sequence) and
+    the backward kernel on CUDA (or meta) tensors, the plain version and
+    its autograd on CPU ones."""
 
     @staticmethod
-    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0, zero_state):
+    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0, zero_state, L):
         state = {"C": C0, "n": n0, "m": m0}
         if q.device.type == "cpu":    # the plain backward needs no states
             (h, out), states = mlstm_chunkwise_plain(q, k, v, i_pre, f_pre,
-                                                     state), ()
+                                                     state, L), ()
         else:
             B, S, H, dh = q.shape
             h, out, states = _launch(q, k, v, i_pre, f_pre, state,
-                                     backward_chunk(S, dh) < S)
+                                     backward_chunk(S, dh, L) < S, L)
         ctx.set_materialize_grads(False)
-        ctx.zero_state = zero_state
+        ctx.zero_state, ctx.chunk = zero_state, L
         ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, h,
                               *(states or ()))
         return h, out["C"], out["n"], out["m"]
@@ -404,7 +479,8 @@ class _MlstmChunkwise(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, dC1, dn1, dm1):
         for name, g in (("C", dC1), ("n", dn1), ("m", dm1)):
-            if g is not None and bool((g != 0).any()):
+            if (g is not None and g.device.type != "meta"
+                    and bool((g != 0).any())):
                 raise RuntimeError(
                     f"mlstm_chunkwise: a gradient reached the final state's "
                     f"{name!r}; the backward takes none out of the final "
@@ -415,33 +491,61 @@ class _MlstmChunkwise(torch.autograd.Function):
         state = {"C": C0, "n": n0, "m": m0}
         grads = mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h,
                                     dh.contiguous(), states or None,
-                                    ctx.zero_state)
-        return (*grads, None, None, None, None)
+                                    ctx.zero_state, ctx.chunk)
+        return (*grads, None, None, None, None, None)
 
 
-def mlstm_chunkwise(q, k, v, i_pre, f_pre, state, zero_state=False):
+def mlstm_chunkwise(q, k, v, i_pre, f_pre, state, zero_state=False,
+                    chunk=None):
     """The mLSTM over a sequence from ``state``: the kernel on CUDA
-    tensors, ``mlstm_chunkwise_plain`` on CPU ones, each through
-    ``_MlstmChunkwise`` when a gradient is needed.  ``zero_state``: the
-    caller built ``state`` as zeros (the backward kernel then skips the
-    products that read it).  Returns (h (B, S, H, dh), {"C", "n", "m"})."""
+    tensors, ``mlstm_chunkwise_plain`` on CPU ones, the outputs' shapes
+    alone on meta ones, each through ``_MlstmChunkwise`` when a gradient
+    is needed.  ``zero_state``: the caller built ``state`` as zeros (the
+    backward kernel then skips the products that read it).  ``chunk``:
+    the forward's chunk (``forward_chunk``; unset: the table's, else
+    ``pick_chunk(S, MAX_CHUNK)``).  Under the sanitizer the inputs, the
+    incoming stabilizer state m (held to +-``MLSTM_M_RANGE``), h and the
+    new m are checked after the call.  Returns (h (B, S, H, dh),
+    {"C", "n", "m"})."""
     _check(q, k, v, i_pre, f_pre, state)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"mlstm_chunkwise: no kernel for {q.device}")
+    B, S, H, dh = q.shape
+    L = forward_chunk(B, S, chunk)
+    grad = False
     if torch.is_grad_enabled():
         if any(t.requires_grad for t in state.values()):
             raise RuntimeError(
                 "mlstm_chunkwise: the initial state requires grad; the "
                 "backward takes no gradient into the state (training starts "
                 "from zeros): detach it")
-        if any(t.requires_grad for t in (q, k, v, i_pre, f_pre)):
-            h, C1, n1, m1 = _MlstmChunkwise.apply(
-                q, k, v, i_pre, f_pre, state["C"], state["n"], state["m"],
-                zero_state)
-            return h, {"C": C1, "n": n1, "m": m1}
+        grad = any(t.requires_grad for t in (q, k, v, i_pre, f_pre))
+    keep = grad and q.device.type != "cpu" and backward_chunk(S, dh, L) < S
+    h, out = op_costs.kernel_call(
+        "mlstm_scan", lambda: forward_cost(B, S, H, dh, L, keep), _scan,
+        q, k, v, i_pre, f_pre, state, zero_state, L, grad)
+    if sanitize.wrapper_checks():
+        R = sanitize.MLSTM_M_RANGE
+        sanitize.run_checks(
+            sanitize.check_finite("mlstm_scan", "input", q, k, v, i_pre,
+                                  f_pre),
+            sanitize.check_in_range("mlstm_scan", "stabilizer state m",
+                                    state["m"], -R, R),
+            sanitize.check_finite("mlstm_scan", "output", h),
+            sanitize.check_in_range("mlstm_scan", "new stabilizer state m",
+                                    out["m"], -R, R))
+    return h, out
+
+
+def _scan(q, k, v, i_pre, f_pre, state, zero_state, L, grad):
+    if grad:
+        h, C1, n1, m1 = _MlstmChunkwise.apply(
+            q, k, v, i_pre, f_pre, state["C"], state["n"], state["m"],
+            zero_state, L)
+        return h, {"C": C1, "n": n1, "m": m1}
     if q.device.type == "cpu":
-        return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state)
-    h, out, _ = _launch(q, k, v, i_pre, f_pre, state, False)
+        return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state, L)
+    h, out, _ = _launch(q, k, v, i_pre, f_pre, state, False, L)
     return h, out
 
 

@@ -25,16 +25,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.router import UNC_FLOOR
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sanitize
 from repro_torch.kernels.router_score.ops import as_f32, check_head
 from repro_torch.kernels.router_score.ops import decision_plan as score_plan
-from repro_torch.kernels.router_score.ops import head_plain
+from repro_torch.kernels.router_score.ops import head_cost, head_plain
+from repro_torch.launch import op_costs
 
 
-def decision_plan(B: int, d: int, hh: int) -> dict:
+def decision_plan(B: int, d: int, hh: int,
+                  k_groups: int | None = None) -> dict:
     """The launch geometry of a ``router_route_cascade`` call: the
-    router kernels' plan with both heads' hidden units in each block."""
-    return score_plan(B, d, hh, heads=2)
+    router kernels' plan with both heads' hidden units in each block
+    (``k_groups`` unset: the table's ``router_cascade`` entry, else the
+    default)."""
+    return score_plan(B, d, hh, heads=2, k_groups=k_groups,
+                      kernel="router_cascade")
 
 
 def router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
@@ -60,11 +65,13 @@ def router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
 
 
 def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
-                               cvals, lam, ladder_pos):
+                               cvals, lam, ladder_pos, *, k_groups=None):
     """emb (B, d); loss head w1/b1/w2/b2 and uncertainty head
     uw1/ub1/uw2/ub2 (same shapes); cvals (n_c, M); lam (B, n_c);
     ladder_pos (M,) int32, each expert's rung on the escalation ladder.
-    Returns (pred, sigma (B, M) f32, choice, esc (B,) int32)."""
+    Returns (pred, sigma (B, M) f32, choice, esc (B,) int32).
+    ``k_groups``: the launch geometry (``decision_plan``).  Under the
+    sanitizer the outputs are checked after the call."""
     name = "router_cascade"
     check_head(name, emb, w1, b1, w2, b2, cvals, lam)
     check_head(name, emb, uw1, ub1, uw2, ub2, cvals, lam)
@@ -76,15 +83,37 @@ def router_score_cascade_fused(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
             or ladder_pos.device != emb.device):
         raise ValueError(f"{name}: ladder_pos must be int32 ({M},) on "
                          f"{emb.device}")
-    if emb.device.type == "cpu":
-        return router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
-                                    cvals, lam, ladder_pos)
-    build.refuse_grad(name, emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals,
-                      lam)
     B, d = emb.shape
     hh = w2.shape[0]
-    plan = decision_plan(B, d, hh)
+    out = op_costs.kernel_call(
+        name, lambda: head_cost(B, d, hh, M, cvals.shape[0], True),
+        _router_cascade, emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals, lam,
+        ladder_pos, k_groups)
+    if sanitize.wrapper_checks():
+        pred, sigma, choice, esc = out
+        sanitize.run_checks(
+            sanitize.check_finite(name, "predicted losses", pred),
+            sanitize.check_finite(name, "sigma", sigma),
+            sanitize.check_in_range(name, "expert choice", choice, 0, M),
+            sanitize.check_in_range(name, "escalation target", esc, 0, M))
+    return out
+
+
+def _router_cascade(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2, cvals, lam,
+                    ladder_pos, k_groups):
+    B, d = emb.shape
+    hh, M = w2.shape
     dev = emb.device
+    if dev.type == "meta":
+        return (torch.empty(B, M, device=dev), torch.empty(B, M, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev))
+    if dev.type == "cpu":
+        return router_cascade_plain(emb, w1, b1, w2, b2, uw1, ub1, uw2, ub2,
+                                    cvals, lam, ladder_pos)
+    build.refuse_grad("router_cascade", emb, w1, b1, w2, b2, uw1, ub1, uw2,
+                      ub2, cvals, lam)
+    plan = decision_plan(B, d, hh, k_groups=k_groups)
     pred = torch.empty(B, M, dtype=torch.float32, device=dev)
     sigma = torch.empty(B, M, dtype=torch.float32, device=dev)
     choice = torch.empty(B, dtype=torch.int32, device=dev)

@@ -10,8 +10,12 @@ design and what bounds it)::
     choice = argmin(pred + lam @ cvals)                      (B,) int32
 
 with ties going to the first index.  On a CPU tensor it runs
-``router_score_plain``.  Rows are independent: one cluster of blocks
-per row.
+``router_score_plain``, on a meta tensor (the dry run) it gives the
+outputs' shapes.  Rows are independent: one cluster of blocks per row.
+The launch geometry is ``decision_plan``'s (a launch-config table,
+``kernels.tiles``, may set the k-groups); inside a counted region
+(``launch.op_costs``) a call records ``head_cost``; under the sanitizer
+(``kernels.sanitize``) its inputs and outputs are checked.
 
 Bound on the H100: bytes (~90 KB of weights and rows at B=32, about
 27 ns at 3.35 TB/s), far below the launch floor, the device time of an
@@ -29,29 +33,70 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sanitize, tiles
+from repro_torch.launch import op_costs
 
 CLUSTER = 8     # blocks a row takes (kCluster in csrc/router_head.cuh)
 THREADS = 256   # most threads a block takes (kRouterMaxThreads there)
 
 
-def decision_plan(B: int, d: int, hh: int, heads: int = 1) -> dict:
+def default_k_groups(d: int, units: int) -> int:
+    """The k-groups a block takes without a table: the most (a power of
+    two, at most ``d``) whose (k-group, hidden unit) pairs fit
+    ``THREADS``."""
+    groups = 1
+    while 2 * groups * units <= THREADS and 2 * groups <= d:
+        groups *= 2
+    return groups
+
+
+def valid_k_groups(k: int, d: int) -> bool:
+    """Whether the kernel takes ``k`` k-groups over width ``d``: a power
+    of two, at most ``d`` and at most ``THREADS``."""
+    return 1 <= k <= min(d, THREADS) and k & (k - 1) == 0
+
+
+def decision_plan(B: int, d: int, hh: int, heads: int = 1,
+                  k_groups: int | None = None,
+                  kernel: str = "router_score") -> dict:
     """The launch geometry of a router kernel over ``B`` rows of width
     ``d`` with ``heads`` hidden layers of ``hh`` units (2 for the
     cascade): a cluster of ``CLUSTER`` blocks per row, each block a
     slice of ``units_per_block`` hidden units of every head, its threads
-    owning (k-group, hidden unit) pairs, with as many k-groups (a power
-    of two, at most ``d``) as fit ``THREADS``.  The wrappers launch
-    exactly this geometry."""
+    owning (k-group, hidden unit) pairs.  ``k_groups`` left unset is the
+    launch-config table's entry for ``kernel`` at ``B``
+    (``kernels.tiles``), where it has a valid one, else
+    ``default_k_groups``; the threads follow from it.  The wrappers
+    launch exactly this geometry."""
     per_block = -(-hh // CLUSTER)
     units = heads * per_block
-    groups = 1
-    while 2 * groups * units <= THREADS and 2 * groups <= d:
-        groups *= 2
-    threads = min(THREADS, -(-groups * units // 32) * 32)
+    if k_groups is None:
+        default = default_k_groups(d, units)
+        k_groups = tiles.tile_for(kernel, B, "k_groups", default)
+        if not valid_k_groups(k_groups, d):
+            k_groups = default
+    elif not valid_k_groups(k_groups, d):
+        raise ValueError(f"{kernel}: k_groups {k_groups} must be a power of "
+                         f"two at most {min(d, THREADS)}")
+    threads = min(THREADS, -(-k_groups * units // 32) * 32)
     return {"grid": CLUSTER * B, "cluster": CLUSTER,
             "units_per_block": per_block, "threads": threads,
-            "k_groups": groups}
+            "k_groups": k_groups}
+
+
+def head_cost(B, d, hh, M, n_c, cascade) -> tuple[int, int]:
+    """(f32 operations, bytes) of one router-kernel call: both layers'
+    products and the constraint add; weights, rows and outputs moved
+    once (the cascade: both heads, sigma, the escalation target and the
+    ladder too)."""
+    heads = 2 if cascade else 1
+    head_bytes = 4 * (d * hh + hh + hh * M + M)
+    io_bytes = 4 * (B * d + n_c * M + B * n_c + B * M + B)
+    if cascade:     # sigma, esc, ladder_pos
+        io_bytes += 4 * (B * M + B + M)
+    head_flops = 2 * B * d * hh + 2 * B * hh * M
+    return (heads * head_flops + 2 * B * n_c * M,
+            heads * head_bytes + io_bytes)
 
 
 def softplus(x):
@@ -91,21 +136,43 @@ def check_head(name, emb, w1, b1, w2, b2, cvals, lam):
                              f"{emb.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if emb.device.type not in ("cpu", "cuda"):
+    if emb.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no kernel for {emb.device}")
 
 
-def router_score_fused(emb, w1, b1, w2, b2, cvals, lam):
+def router_score_fused(emb, w1, b1, w2, b2, cvals, lam, *, k_groups=None):
     """emb (B, d); w1 (d, hh); b1 (hh,); w2 (hh, M); b2 (M,);
     cvals (n_c, M); lam (B, n_c), all float32 on one device.
-    Returns (pred (B, M) f32, choice (B,) int32)."""
+    Returns (pred (B, M) f32, choice (B,) int32).  ``k_groups``: the
+    launch geometry (``decision_plan``; unset: the table's, else the
+    default).  Under the sanitizer (``kernels.sanitize``) the inputs,
+    the predictions and the choice are checked after the call."""
     check_head("router_score", emb, w1, b1, w2, b2, cvals, lam)
+    B, d = emb.shape
+    hh, M = w2.shape
+    pred, choice = op_costs.kernel_call(
+        "router_score", lambda: head_cost(B, d, hh, M, cvals.shape[0], False),
+        _router_score, emb, w1, b1, w2, b2, cvals, lam, k_groups)
+    if sanitize.wrapper_checks():
+        sanitize.run_checks(
+            sanitize.check_finite("router_score", "input", emb, lam, w1, b1,
+                                  w2, b2),
+            sanitize.check_finite("router_score", "predicted losses", pred),
+            sanitize.check_in_range("router_score", "expert choice", choice,
+                                    0, M))
+    return pred, choice
+
+
+def _router_score(emb, w1, b1, w2, b2, cvals, lam, k_groups):
+    B, d = emb.shape
+    hh, M = w2.shape
+    if emb.device.type == "meta":
+        return (torch.empty(B, M, device="meta"),
+                torch.empty(B, dtype=torch.int32, device="meta"))
     if emb.device.type == "cpu":
         return router_score_plain(emb, w1, b1, w2, b2, cvals, lam)
     build.refuse_grad("router_score", emb, w1, b1, w2, b2, cvals, lam)
-    B, d = emb.shape
-    hh, M = w2.shape
-    plan = decision_plan(B, d, hh)
+    plan = decision_plan(B, d, hh, k_groups=k_groups)
     pred = torch.empty(B, M, dtype=torch.float32, device=emb.device)
     choice = torch.empty(B, dtype=torch.int32, device=emb.device)
     build.launch(

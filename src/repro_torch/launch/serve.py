@@ -12,7 +12,8 @@ over the trained library and drive it with a Poisson arrival simulator.
       [--fail-expert small --fail-after 64] \
       [--cache-tiers exact,persistent,semantic --cache-dir cache/ \
        --cache-semantic 0.5] \
-      [--metrics-port 9109] [--metrics-out metrics.prom]
+      [--metrics-port 9109] [--metrics-out metrics.prom] \
+      [--tile-table PATH] [--sanitize]
 
 The port of ``repro.launch.serve``: the same flags, checks, request
 stream (``default_rng(0)``, the corpus's uniform domain mix, MLM masks,
@@ -42,9 +43,14 @@ restart-safe disk KV under ``--cache-dir``, whose log a JAX engine can
 share; ``semantic`` adds the router-embedding nearest-neighbour tier
 with distance bound ``--cache-semantic EPS``).
 
+``--sanitize`` turns on the kernels' sanitizer (``kernels.sanitize``:
+NaN/inf and out-of-range checks of the routing path, the switch
+``REPRO_SANITIZE=1`` sets); ``--tile-table PATH`` points the kernels'
+launch geometry at a launch-config table (``kernels.tiles``, written on
+the card by ``python -m repro_torch.launch.autotune``).
+
 Not ported yet, and refused rather than ignored: ``--mesh`` and
-``--replicate-hot`` (placement, ROADMAP queue 1 item 13),
-``--tile-table`` and ``--sanitize`` (launch tooling, item 15).
+``--replicate-hot`` (placement, ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -88,9 +94,7 @@ def parse_priority_mix(spec: str) -> list[float]:
 
 # flags of the JAX driver whose subsystem the port does not have yet
 NOT_PORTED = {"mesh": "placement, ROADMAP queue 1 item 13",
-              "replicate_hot": "placement, ROADMAP queue 1 item 13",
-              "tile_table": "the tile table, ROADMAP queue 1 item 15",
-              "sanitize": "the sanitizer, ROADMAP queue 1 item 15"}
+              "replicate_hot": "placement, ROADMAP queue 1 item 13"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,7 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "launch (needs --cascade; incompatible with "
                          "--fallback-depth)")
     ap.add_argument("--tile-table", type=str, default="", metavar="PATH",
-                    help="not ported yet (refused)")
+                    help="launch-config table of the kernels (default: "
+                         "experiments/tryage/tile_table_torch.json or "
+                         "$REPRO_TORCH_TILE_TABLE; write one on the card "
+                         "with python -m repro_torch.launch.autotune)")
     ap.add_argument("--adapt-every", type=int, default=0, metavar="N",
                     help="router update every N observed losses "
                          "(0 = frozen router, the default)")
@@ -197,7 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", type=str, default="",
                     help="write a final metrics scrape to this file")
     ap.add_argument("--sanitize", action="store_true",
-                    help="not ported yet (refused)")
+                    help="enable the kernels' sanitizer (NaN/inf + "
+                         "out-of-range checks on the routing path; same "
+                         "switch as REPRO_SANITIZE=1)")
     return ap
 
 
@@ -234,6 +243,14 @@ def main(argv=None) -> dict:
                  "cannot reorder around the health consult")
     if args.speculate and args.fifo:
         ap.error("--speculate needs the scheduler (drop --fifo)")
+
+    if args.tile_table:
+        from repro_torch.kernels import tiles
+        tiles.set_table_path(args.tile_table)
+
+    if args.sanitize:
+        from repro_torch.kernels import sanitize
+        sanitize.set_sanitize(True)
 
     from repro_torch.device import resolve_device
     dev = resolve_device(args.device)     # no card and no --device: raise

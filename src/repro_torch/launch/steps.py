@@ -16,6 +16,9 @@ lines 27-31 and 45-47; the knob reaches only its abstract shardings).
 meaning and are not ported: the attention is the kernel's on the card,
 there is no mesh to lay rules on, and the step updates the model in
 place.
+
+The three steps own sanitization (``kernels.sanitize.owned``), as the
+reference's jit'd steps do: the kernel wrappers' checks skip inside.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import module_device, resolve_device
+from repro_torch.kernels import sanitize
 from repro_torch.models import model as model_lib
 from repro_torch.optim.adamw import OptState, adamw_update, grads_of
 
@@ -48,6 +52,7 @@ class PerfKnobs:
                              f"unit_group {self.unit_group} must be >= 1")
 
 
+@sanitize.owns
 def train_step(model, opt: OptState, batch, *, knobs: PerfKnobs = PerfKnobs(),
                lr=5e-5, device=None):
     """One AdamW step of ``lm_loss`` (weight decay 1e-5) on ``batch``
@@ -106,6 +111,7 @@ def _on_device(model, device) -> torch.device:
 
 
 @torch.inference_mode()
+@sanitize.owns
 def prefill_step(model, batch, *, cache_capacity=None, device=None):
     """batch: {"tokens": (B, S) ints} or, for the modality stubs,
     {"embeds": (B, S, d)}.  Returns (the last position's logits (B, V)
@@ -121,6 +127,7 @@ def prefill_step(model, batch, *, cache_capacity=None, device=None):
 
 
 @torch.inference_mode()
+@sanitize.owns
 def serve_step(model, state, tokens, index, *, device=None):
     """One greedy decode step: tokens (B, 1) at position ``index``.
     Returns (next tokens (B, 1) int32, per-layer states)."""

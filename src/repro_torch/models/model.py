@@ -135,8 +135,13 @@ class Model(nn.Module):
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """A model with weights drawn on ``device`` (default: the card;
     raises without one) from a ``torch.Generator`` seeded with ``seed``
-    on that device, so a full-width model is drawn where it lives."""
+    on that device, so a full-width model is drawn where it lives.
+    ``device="meta"`` (the dry run) builds the parameters' shapes and
+    types alone: nothing is allocated and nothing drawn."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        with dev:
+            return Model(cfg, None)
     with dev:
         return Model(cfg, torch.Generator(dev).manual_seed(seed))
 

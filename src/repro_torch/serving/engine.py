@@ -54,6 +54,12 @@ stage replays a batch from the replay buffer through
 on, and the in-memory tiers (T1, T3) are cleared; T2 keeps its records,
 which only a replica at their version can read.
 
+Sanitizer (``REPRO_SANITIZE``, ``kernels.sanitize``): the routing and
+expert paths own sanitization, as the JAX engine's jit'd paths do, so
+the kernel wrappers' checks skip inside them; ``_sanitize_batch`` checks
+each scored batch instead (token ids on the host, before the encoder
+sees them, then the predictions and the choice).
+
 Not ported yet: mesh placement.  Its knobs are absent from the
 constructor.
 """
@@ -79,6 +85,7 @@ from repro_torch.core.router import (RouterConfig, VersionedParams,
 from repro_torch.core.training import (make_router_update_step,
                                        router_prediction_error)
 from repro_torch.device import module_device, resolve_device
+from repro_torch.kernels import sanitize
 from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
 from repro_torch.models.model import forward
@@ -460,6 +467,7 @@ class TryageEngine:
     # ---------------------------------------------------- routing stage
 
     @torch.inference_mode()
+    @sanitize.owns
     def _score_batch(self, reqs: list[Request]) -> tuple[np.ndarray,
                                                          np.ndarray]:
         """Score one batch with the router (no cache): the predicted
@@ -468,6 +476,7 @@ class TryageEngine:
         ``router_score`` launch after the encoder."""
         B = len(reqs)
         t0 = self._now()
+        host = self._sanitize_tokens(reqs)
         Bp, (toks, lam) = self._padded(reqs)
         router = self.router_params
         emb = router_embed(router, self.rc, {"tokens": toks})
@@ -476,6 +485,8 @@ class TryageEngine:
         tiles = self.stats.router_tiles.setdefault("router_score", {})
         if Bp not in tiles:
             tiles[Bp] = rs_ops.decision_plan(Bp, *router.head["w1"].shape)
+        if host is not None:
+            self._sanitize_batch(host, pred, choice)
         pred = pred.cpu().numpy()[:B]
         choice = choice.cpu().numpy()[:B]
         self.stats.router_time_s += self._now() - t0
@@ -483,6 +494,7 @@ class TryageEngine:
         return pred, choice
 
     @torch.inference_mode()
+    @sanitize.owns
     def _embed_batch(self, reqs: list[Request]) -> np.ndarray:
         """Pooled router embeddings (B, d) f32 for the semantic tier: one
         bucket-padded encoder pass on the device.  Counts as a router
@@ -497,6 +509,7 @@ class TryageEngine:
         return emb
 
     @torch.inference_mode()
+    @sanitize.owns
     def _score_from_emb(self, reqs: list[Request], emb: np.ndarray,
                         ) -> tuple[np.ndarray, np.ndarray]:
         """Finish scoring from precomputed pooled embeddings (the T3
@@ -514,6 +527,9 @@ class TryageEngine:
         tiles = self.stats.router_tiles.setdefault("router_score", {})
         if Bp not in tiles:
             tiles[Bp] = rs_ops.decision_plan(Bp, *router.head["w1"].shape)
+        host = self._sanitize_tokens(reqs)
+        if host is not None:
+            self._sanitize_batch(host, pred)
         pred = pred.cpu().numpy()[:B]
         scores = pred.copy()
         for c in self.constraints:
@@ -532,12 +548,14 @@ class TryageEngine:
                 and any(r.min_confidence > 0.0 for r in reqs))
 
     @torch.inference_mode()
+    @sanitize.owns
     def _score_cascade_batch(self, reqs: list[Request]) -> tuple[
             np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """One-launch cascade scoring: ``(pred, choice, sigma, esc)``
         from a single ``router_cascade`` launch after the encoder."""
         B = len(reqs)
         t0 = self._now()
+        host = self._sanitize_tokens(reqs)
         Bp, (toks, lam) = self._padded(reqs)
         router = self.router_params
         emb = router_embed(router, self.rc, {"tokens": toks})
@@ -547,13 +565,45 @@ class TryageEngine:
         tiles = self.stats.router_tiles.setdefault("router_cascade", {})
         if Bp not in tiles:
             tiles[Bp] = rc_ops.decision_plan(Bp, *router.head["w1"].shape)
+        if host is not None:
+            self._sanitize_batch(host, pred, choice)
         pred, sigma, choice, esc = (t.cpu().numpy()[:B]
                                     for t in (pred, sigma, choice, esc))
         self.stats.router_time_s += self._now() - t0
         self.stats.router_batches += 1
         return pred, choice, sigma, esc
 
+    def _sanitize_tokens(self, reqs: list[Request]):
+        """Under ``REPRO_SANITIZE`` the batch's token ids (host numpy),
+        range-checked before the encoder sees them (an id past the
+        embedding table would fault on the card), else None."""
+        if not sanitize.sanitize_enabled():
+            return None
+        toks = np.stack([r.tokens for r in reqs])
+        self._sanitize_batch(toks)
+        return toks
+
+    def _sanitize_batch(self, toks, pred=None, choice=None):
+        """``REPRO_SANITIZE``: validate one scored batch, as the JAX
+        engine does.  Token ids are range-checked on the host (they
+        arrive as numpy); the predicted losses (finite) and the choice
+        (in [0, M)) with one host sync (``kernels.sanitize``)."""
+        vocab = self.rc.vocab_size
+        if toks.min() < 0 or toks.max() >= vocab:
+            raise ValueError(
+                f"router_score: token id out of range [0, {vocab})")
+        if pred is None:
+            return
+        checks = [sanitize.check_finite("router_score", "predicted losses",
+                                        pred)]
+        if choice is not None:
+            checks.append(sanitize.check_in_range(
+                "router_score", "expert choice", choice, 0,
+                self.rc.n_models))
+        sanitize.run_checks(*checks)
+
     @torch.inference_mode()
+    @sanitize.owns
     def _sigma_batch(self, reqs: list[Request]) -> np.ndarray:
         """Per-expert sigma (B, M): a second router pass, paid only by
         cascade traffic on the staged path."""
@@ -701,6 +751,7 @@ class TryageEngine:
         return preds, ex_loss, ex_acc
 
     @torch.inference_mode()
+    @sanitize.owns
     def _run_expert(self, e, reqs: list[Request]):
         """Execute one padded per-expert micro-batch; returns per-example
         (preds, loss, acc) arrays trimmed back to len(reqs)."""

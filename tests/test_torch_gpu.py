@@ -39,6 +39,13 @@ within one bf16 ulp of each element plus 2e-5 (the f32 tolerance before
 both round), f32 at the f32 tolerances.  The zoo's reduced decoders
 (dense, MoE and the Mamba hybrid) on the card against the CPU in f32:
 logits, caches and Mamba states rtol=atol=1e-4, the same greedy tokens.
+Launch tooling: the sanitizer on CUDA tensors (bit-identical outputs
+with the switch on, the reference's texts on bad inputs, nothing under
+``owned()``); the attention forward at each ``warps`` a launch-config
+table can give it at the attention tolerances above; a table-chosen
+mLSTM chunk, forward and backward (which takes the forward's chunk)
+within 1e-4 of the largest magnitude of the plain version at the same
+chunk.
 """
 
 import copy
@@ -931,3 +938,129 @@ def test_disk_tier_on_card_survives_a_restart(tmp_path):
             assert r.expert == first[uid].expert
             np.testing.assert_array_equal(r.pred_losses,
                                           first[uid].pred_losses)
+
+
+# ------------------------------------------------------ launch tooling
+
+def test_sanitizer_on_cuda_tensors():
+    """The sanitizer on the card: clean calls give bit-identical outputs
+    to the switch off; a NaN, a window past T and an m past the band
+    raise the reference's texts; under ``owned()`` nothing is checked."""
+    from repro_torch.kernels import sanitize
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    q, k, v = r(4, 64, 2, 32), r(4, 64, 2, 32), r(4, 64, 2, 32)
+    emb, w1, b1, w2, b2 = r(8, 32), r(32, 64) * 0.2, r(64), r(64, 5), r(5)
+    cvals, lam = r(2, 5).abs(), r(8, 2).abs()
+    st = {"C": r(1, 2, 16, 16) * 0.3, "n": r(1, 2, 16) * 0.3,
+          "m": r(1, 2)}
+    ml = (r(1, 32, 2, 16), r(1, 32, 2, 16), r(1, 32, 2, 16), r(1, 32, 2),
+          r(1, 32, 2) + 3.0)
+    calls = [lambda: rs_ops.router_score_fused(emb, w1, b1, w2, b2, cvals,
+                                               lam),
+             lambda: (fa_ops.flash_attention(q, k, v, causal=True),),
+             lambda: ml_ops.mlstm_chunkwise(*ml, st)[:1]]
+    try:
+        for call in calls:
+            sanitize.set_sanitize(False)
+            off = call()
+            sanitize.set_sanitize(True)
+            on = call()
+            assert all(torch.equal(a, b) for a, b in zip(off, on))
+        bad_q = q.clone()
+        bad_q[1, 2, 0, 3] = float("inf")
+        with pytest.raises(sanitize.SanitizeError,
+                           match=r"^flash_attention: non-finite input$"):
+            fa_ops.flash_attention(bad_q, k, v)
+        with pytest.raises(sanitize.SanitizeError, match=r"window out of "
+                                                         r"range \[0, 65\)"):
+            fa_ops.flash_attention(q, k, v, window=65)
+        with pytest.raises(sanitize.SanitizeError,
+                           match=r"stabilizer state m out of range "
+                                 r"\[-80.0, 80.0\)"):
+            ml_ops.mlstm_chunkwise(*ml, dict(st, m=st["m"] + 90.0))
+        bad_emb = emb.clone()
+        bad_emb[0, 0] = float("nan")
+        with pytest.raises(sanitize.SanitizeError,
+                           match=r"^router_score: non-finite input$"):
+            rs_ops.router_score_fused(bad_emb, w1, b1, w2, b2, cvals, lam)
+        with sanitize.owned():
+            fa_ops.flash_attention(bad_q, k, v)
+        torch.cuda.synchronize()
+    finally:
+        sanitize.set_sanitize(None)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,dtype", [
+    (32, 128, 4, 4, 32, False, "float32"),     # the router's attention
+    (1, 128, 4, 4, 40, False, "float32"),
+    (2, 300, 8, 2, 64, True, "bfloat16"),
+    (1, 200, 4, 4, 256, True, "bfloat16")])
+def test_flash_attention_warps_match_plain(B, S, H, KV, hd, causal, dtype,
+                                           warps):
+    """The forward kernel at each geometry a launch-config table can
+    give it (``warps`` 1, 2, 4) against the plain version: the same rows
+    in other blocks, so the same tolerances."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(S + hd)
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g).to(dt)
+    k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g).to(dt)
+            for _ in range(2))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, warps=warps)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = fa_ops.attention_plain(q, k, v, causal=causal)
+    if dt == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+    else:
+        diff = (out.float() - ref.float()).abs()
+        big = torch.maximum(out.float().abs(), ref.float().abs())
+        ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(2.0 ** -126)))
+                         - 7)
+        assert float(((diff - 2e-5).clamp_min(0) / ulp).max()) <= 1.0
+
+
+def test_table_chosen_mlstm_chunk(tmp_path):
+    """A launch-config table's chunk on the card: the forward at that
+    chunk against the plain version at the same chunk, and the backward
+    taking the forward's chunk against autograd of the plain version."""
+    import json
+    from repro_torch.kernels import tiles
+    _card()
+    path = tmp_path / "table.json"
+    path.write_text(json.dumps({tiles.backend_key(): {
+        "mlstm_scan": {"1": {"chunk": 32}}}}))
+    tiles.set_table_path(str(path))
+    try:
+        B, S, H, dh = 1, 256, 2, 64
+        assert ml_ops.forward_chunk(B, S) == 32
+        assert ml_ops.backward_chunk(S, dh, 32) == 32
+        g = torch.Generator(device="cuda").manual_seed(9)
+        r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+        args = [r(B, S, H, dh), r(B, S, H, dh), r(B, S, H, dh), r(B, S, H),
+                r(B, S, H) + 3.0]
+        st = {"C": torch.zeros(B, H, dh, dh, device="cuda"),
+              "n": torch.zeros(B, H, dh, device="cuda"),
+              "m": torch.zeros(B, H, device="cuda")}
+        h, new = ml_ops.mlstm_chunkwise(*args, st)
+        rh, rnew = ml_ops.mlstm_chunkwise_plain(*args, st, chunk=32)
+        for got, want in ((h, rh), (new["C"], rnew["C"]),
+                          (new["n"], rnew["n"])):
+            assert float((got - want).abs().max()) <= 1e-4 * float(
+                want.abs().max())
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = ml_ops.mlstm_chunkwise_bwd.launches
+        with torch.enable_grad():
+            h, _ = ml_ops.mlstm_chunkwise(*leaves, st)
+            dh_ = r(B, S, H, dh)
+            got = torch.autograd.grad(h, leaves, dh_)
+        assert ml_ops.mlstm_chunkwise_bwd.launches == before + 1
+        want = ml_ops.mlstm_chunkwise_grad_plain(*args, st, dh_, chunk=32)
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    finally:
+        tiles.set_table_path(None)

@@ -59,7 +59,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "launch.serve", "launch.specs", "configs.tinyllama_11b",
                 "configs.qwen15_05b", "configs.starcoder2_15b",
                 "configs.gemma3_4b", "configs.hubert_xlarge",
-                "configs.qwen2_vl_72b"):
+                "configs.qwen2_vl_72b", "kernels.sanitize",
+                "kernels.tiles", "checkpoint", "checkpoint.store",
+                "launch.roofline", "launch.op_costs", "launch.dryrun",
+                "launch.autotune"):
         assert f"repro_torch.{mod}" in names, mod
 
 

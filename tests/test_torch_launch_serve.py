@@ -8,9 +8,12 @@ package's (``repro.launch.serve``).
   message, except the one the port drops on purpose
   (``--fused-cascade`` without ``--use-kernel``: the port always decides
   through its kernels); the flags of subsystems not ported yet
-  (``--mesh``, ``--replicate-hot``, ``--tile-table``, ``--sanitize``)
-  are refused; without a card and without ``--device`` the command
-  raises instead of serving on the CPU;
+  (``--mesh``, ``--replicate-hot``) are refused; without a card and
+  without ``--device`` the command raises instead of serving on the
+  CPU;
+* ``--sanitize`` and ``--tile-table`` are served: the summary matches
+  the JAX CLI's (``"sanitize": true``) and the port's kernels consult
+  the given table;
 * ``main()`` of both packages on the CPU over the same tiny artifacts
   (``tiny_library``, one router with an uncertainty head, a vocab-64
   corpus; ``load_artifacts`` monkeypatched, the port with ``--device
@@ -129,9 +132,7 @@ def test_fused_cascade_needs_only_cascade(monkeypatch, capsys):
         tserve.main(argv)
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "1,1"], ["--replicate-hot", "1"],
-                                  ["--tile-table", "tiles.json"],
-                                  ["--sanitize"]],
+@pytest.mark.parametrize("argv", [["--mesh", "1,1"], ["--replicate-hot", "1"]],
                          ids=lambda a: a[0])
 def test_flags_not_ported_are_refused(capsys, argv):
     with pytest.raises(SystemExit) as err:
@@ -148,6 +149,21 @@ def test_serving_without_a_card_raises(monkeypatch):
 
 
 # ---------------------------------------------------- main() against JAX
+
+
+@pytest.fixture
+def switches():
+    """The process-wide sanitizer switch and table path that
+    ``--sanitize`` and ``--tile-table`` set, restored after."""
+    from repro.kernels import sanitize as jsan
+    from repro.kernels import tiles as jtiles
+    from repro_torch.kernels import sanitize as tsan
+    from repro_torch.kernels import tiles as ttiles
+    yield
+    tsan.set_sanitize(None)
+    jsan.set_sanitize(None)
+    ttiles.set_table_path(None)
+    jtiles.set_table_path(None)
 
 
 @pytest.fixture(scope="module")
@@ -239,3 +255,45 @@ def test_main_matches_jax(monkeypatch, capsys, tmp_path, artifacts, case):
             # the restart answers every request from T2
             assert got["engine"]["cache"]["tiers"] == {"t2": 96}
             assert 'tryage_cache_tier_hits_total{tier="t2"} 96' in ttext
+
+
+@pytest.mark.parametrize("flag", ["--sanitize", "--tile-table"])
+def test_launch_tooling_flags_are_served(monkeypatch, capsys, tmp_path,
+                                         artifacts, switches, flag):
+    """``--sanitize`` and ``--tile-table`` run in both packages: the same
+    summary as the JAX CLI's (``"sanitize": true``), and the port's
+    kernels consult the given table (its ``router_tiles`` carry the
+    table's k-groups; the JAX package reads no entry of it)."""
+    from repro.core import experiment as jex
+    from repro_torch.core import experiment as tex
+    from repro_torch.kernels import sanitize as tsan
+    from repro_torch.kernels import tiles as ttiles
+    jart, tart = artifacts
+    monkeypatch.setattr(jex, "load_artifacts", lambda: jart)
+    monkeypatch.setattr(tex, "load_artifacts", lambda: tart)
+    monkeypatch.delenv("REPRO_SANITIZE", raising=False)
+    extra = [flag]
+    if flag == "--tile-table":
+        path = tmp_path / "table.json"
+        path.write_text(json.dumps({"version": 1, ttiles.backend_key(): {
+            "router_score": {"1": {"k_groups": 2}, "16": {"k_groups": 32}},
+            "router_cascade": {"1": {"k_groups": 1}}}}))
+        extra.append(str(path))
+    common = ["--requests", "96", "--seq", "32", "--max-wait-s", "10",
+              "--use-kernel", "--cascade", "0.6", "--fused-cascade"] + extra
+    ref = _jax_summary(monkeypatch, capsys, common)
+    got = tserve.main(common + ["--device", "cpu"])
+    assert got["sanitize"] is ref["sanitize"] is (flag == "--sanitize")
+    assert tsan.sanitize_enabled() is (flag == "--sanitize")
+    plans = got["engine"]["router_tiles"]
+    (a, fa), (b, fb) = _comparable(ref), _comparable(got)
+    assert b == a
+    for key in fa:
+        assert abs(fb[key] - fa[key]) <= TOL, key
+    if flag == "--tile-table":
+        assert ttiles.table_path() == str(path)
+        assert plans["router_cascade"]
+        for name, by_batch in plans.items():
+            for B, plan in by_batch.items():
+                want = ttiles.tile_for(name, B, "k_groups", -1)
+                assert plan["k_groups"] == want != -1
