@@ -21,6 +21,20 @@ just before it and read just after:
   and with failures injected into its lane (a health tracker), behind
   the session front end with a queue of 32, through the metrics export,
   and for 64 requests on the CPU;
+* ``mesh_path``: mesh serving (``launch.mesh``, the engine's placement
+  and dispatch) over the same library, router and requests through
+  ``serve()``, each engine on a clock only the phase advances: (A) a
+  (1, 1) mesh over the card is bit for bit the meshless engine
+  (``Result``s and ``EngineStats``) with escalations and two failures
+  injected into the busiest expert's lane, and ``warm_mesh`` runs every
+  (expert, bucket) once; (B) a (2, 4) mesh over eight slots of the card
+  decides as the meshless engine (near ties excused, NLL rtol 1e-5),
+  plain and with the busiest expert failing: two ``router_score``
+  launches a router batch, no ``router_cascade``, flushes in more than
+  one stream, failures charged to that expert's streams; (C) req/s of
+  meshless, (1, 1) and (2, 4) on the host clock after ``warm_mesh``,
+  medians of 3 (reported, not gated); (D) ``make_host_mesh(1, 2)``
+  refused on one card;
 * ``xlstm_serve``: the full ``xlstm-1.3b`` config (48 layers, 3.43 B
   parameters, bf16, seeded random weights) prefills 4 prompts of 512
   tokens with ``prefill_step`` and greedy-decodes 32 tokens with
@@ -103,10 +117,12 @@ just before it and read just after:
   and T2 with the tiered run's verdicts; no stale version; and the
   tiered engine's routing rerun on the CPU gives the same choice and
   tier per row;
-* ``serve_cli``: ``python -m repro_torch.launch.serve``'s ``main`` three
+* ``serve_cli``: ``python -m repro_torch.launch.serve``'s ``main`` four
   times: every tier under 600 req/s Poisson arrivals over 4 sessions,
   the same again as a restart over the same directory (answered from
-  T2), and the FIFO drain with the exact tier;
+  T2), the FIFO drain with the exact tier, and that drain again on a
+  (1, 1) mesh (``--mesh 1,1 --replicate-hot 1``: the same allocation,
+  flushes and mean loss, and the summary's ``"mesh"`` block);
 * ``sanitize`` (after ``serve_path``): the sanitizer on the four forward
   wrappers on the card: clean inputs give bit-identical outputs with
   the switch on and off, a NaN in q or emb, a window past T, m at 90
@@ -158,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -1022,6 +1039,193 @@ def serve_path_phase(torch, s, run_res: dict, run_line: dict,
            "cpu_rerun": {"requests": len(cpu), "mismatched": mismatched,
                          "near_tie_excused": excused}}
     emit("serve_path", **out)
+    return out
+
+
+class PhaseClock:
+    """An engine clock that only the phase advances."""
+
+    def __init__(self, t: float = 1.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def result_key(r) -> dict:
+    """A Result as a dict, its arrays as their bytes."""
+    d = dataclasses.asdict(r)
+    d["pred_losses"] = d["pred_losses"].tobytes()
+    d["predictions"] = d["predictions"].tobytes()
+    return d
+
+
+def mesh_path_phase(torch, s, run_res: dict, card: str) -> dict:
+    """Mesh serving over ``main_path``'s library, router, threshold and
+    256 requests through ``serve()`` (fused cascade, ``lane_target=8``,
+    the reference test's recipe), each engine on its own ``PhaseClock``:
+    (A) a (1, 1) mesh over the card against the meshless engine, bit for
+    bit, with a health tracker and two failures injected into the
+    busiest expert's lane; (B) a (2, 4) mesh over eight slots of the card
+    against the meshless engine, plain and with every flush of the
+    busiest expert failing; (C) req/s of meshless, (1, 1) and (2, 4) on
+    the host clock after ``warm_mesh``, medians of 3 (reported, not
+    gated); (D) a mesh past the visible cards refused."""
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ExpertHealth, TryageEngine
+
+    t_phase = time.perf_counter()
+    names = [e.name for e in s.lib.experts]
+    traffic = {}
+    for r in run_res.values():
+        traffic[r.expert] = traffic.get(r.expert, 0) + 1
+    hot = names.index(max(traffic, key=traffic.get))
+    slot = torch.device("cuda", torch.cuda.current_device())
+
+    def engine(now_fn, mesh=None, **kw):
+        return TryageEngine(s.lib, s.router, s.rc, s.cons,
+                            max_batch=MAX_BATCH, fused_cascade=True,
+                            max_wait_s=10.0, now_fn=now_fn, mesh=mesh,
+                            replicate_hot=1, device="cuda", **kw)
+
+    def serve(eng, clock=None, fail=None, count=-1):
+        def arrivals():
+            for i, r in enumerate(s.requests()):
+                if i == 0 and fail is not None:
+                    eng.scheduler.inject_failures(fail, count)
+                if clock is not None:
+                    clock.t += 0.001
+                yield r
+        res = sorted(eng.serve(arrivals()), key=lambda r: r.uid)
+        check([r.uid for r in res] == list(range(N_REQUESTS)),
+              "mesh_path: not one Result per request")
+        return res
+
+    def decides_as(ref, got, what) -> int:
+        """Choices and depths as ``ref`` but at near ties, NLL within
+        rtol 1e-5; returns the rows excused."""
+        excused = 0
+        reqs = s.requests()
+        for a, b in zip(ref, got):
+            if ((a.expert, a.cascade_depth, a.fallback_depth)
+                    != (b.expert, b.cascade_depth, b.fallback_depth)):
+                check(near_tie(s, reqs[a.uid], a),
+                      f"{what}: uid {a.uid} {b.expert}@{b.cascade_depth} "
+                      f"on the mesh, {a.expert}@{a.cascade_depth} without")
+                excused += 1
+            elif a.loss is not None:
+                check(abs(b.loss - a.loss) <= 1e-5 * abs(a.loss),
+                      f"{what}: uid {a.uid} NLL {b.loss} vs {a.loss}")
+        return excused
+
+    # (A) (1, 1) against meshless, bit for bit
+    outs, stats, engs = [], [], []
+    for mesh in (None, make_host_mesh(1, 1)):
+        clock = PhaseClock()
+        eng = engine(clock, mesh, lane_target=8,
+                     health=ExpertHealth(len(s.lib), now_fn=clock))
+        outs.append(serve(eng, clock, fail=hot, count=2))
+        stats.append(eng.stats.summary())
+        engs.append(eng)
+    for a, b in zip(*outs):
+        check(result_key(a) == result_key(b),
+              f"(1, 1) mesh: uid {a.uid} differs from the meshless Result")
+    check(stats[0] == stats[1], "(1, 1) mesh: EngineStats differ")
+    check(stats[0]["cascade"]["escalations"] > 0
+          and stats[0]["fallback"]["reroutes"] > 0,
+          f"(1, 1) mesh: {stats[0]['cascade']['escalations']} escalations, "
+          f"{stats[0]['fallback']['reroutes']} reroutes")
+    one = engs[1]
+    streams = one.mesh_summary()["streams"]
+    check(streams["flushes"] == [sum(stats[1]["flushes"].values())],
+          f"(1, 1) mesh: stream flushes {streams['flushes']}")
+    n_buckets = len([b for b in (1, 2, 4, 8) if b <= one.lane_target])
+    warmed = one.warm_mesh(SEQ)
+    check(warmed == len(s.lib) * n_buckets, f"warm_mesh ran {warmed}")
+    check(one.mesh_summary()["streams"] == streams,
+          "warm_mesh charged a stream")
+    part_a = {"results_identical": True, "stats_identical": True,
+              "escalations": stats[0]["cascade"]["escalations"],
+              "reroutes": stats[0]["fallback"]["reroutes"],
+              "flushes": streams["flushes"], "warm_mesh": warmed,
+              "busiest": names[hot]}
+
+    # (B) (2, 4) over eight slots of the card against meshless
+    part_b = {}
+    for case in ("plain", "failures"):
+        outs, engs, counts = [], [], None
+        for mesh in (None, make_host_mesh(2, 4, devices=[slot] * 8)):
+            clock = PhaseClock()
+            kw = ({} if case == "plain" else
+                  {"health": ExpertHealth(len(s.lib), now_fn=clock)})
+            eng = engine(clock, mesh, lane_target=8, **kw)
+            launches.reset_launch_counts()
+            outs.append(serve(eng, clock,
+                              fail=None if case == "plain" else hot))
+            counts = launches.launch_counts()
+            engs.append(eng)
+        wide = engs[1]
+        excused = decides_as(*outs, f"(2, 4) mesh, {case}")
+        ms = wide.mesh_summary()
+        st = ms["streams"]
+        check(sum(st["flushes"]) == sum(wide.stats.flushes.values()),
+              f"(2, 4) {case}: stream flushes {st['flushes']}")
+        check(sum(f > 0 for f in st["flushes"]) > 1,
+              f"(2, 4) {case}: one stream flushed {st['flushes']}")
+        check(counts["router_score"] == 2 * wide.stats.router_batches,
+              f"(2, 4) {case}: {counts['router_score']} router_score "
+              f"launches for {wide.stats.router_batches} router batches")
+        check(counts["router_cascade"] == 0 and counts["flash_attention"] > 0,
+              f"(2, 4) {case}: launches {counts}")
+        mine = set(wide._expert_streams[hot])
+        fails = wide.stats.expert_failures.get(names[hot], 0)
+        check(sum(f for i, f in enumerate(st["failures"]) if i in mine)
+              == fails
+              and not any(f for i, f in enumerate(st["failures"])
+                          if i not in mine)
+              and (fails > 0) == (case == "failures"),
+              f"(2, 4) {case}: failures {st['failures']}, {fails} flushes "
+              f"of {names[hot]} failed")
+        part_b[case] = {"near_tie_excused": excused, "launches": counts,
+                        "router_batches": wide.stats.router_batches,
+                        "streams": st, "reroutes": wide.stats.reroutes,
+                        "expert_failures": fails}
+    part_b["placement"] = ms["placement"]
+
+    # (C) req/s on the host clock, after warm_mesh, medians of 3
+    meshes = {"meshless": lambda: None, "1x1": lambda: make_host_mesh(1, 1),
+              "2x4": lambda: make_host_mesh(2, 4, devices=[slot] * 8)}
+    rates = {k: [] for k in meshes}
+    for _ in range(3):
+        for name, mk in meshes.items():
+            eng = engine(time.monotonic, mk())
+            eng.warm_mesh(SEQ)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(eng)
+            torch.cuda.synchronize()
+            rates[name].append(N_REQUESTS / (time.perf_counter() - t0))
+    # the last (2, 4) run's streams: on the host clock the least-busy
+    # rule spreads a replicated expert's flushes over its streams
+    part_c = {"card": card,
+              "req_per_s": {k: float(np.median(v)) for k, v in rates.items()},
+              "runs": rates, "streams_2x4": eng.mesh_summary()["streams"]}
+
+    # (D) one card backs no mesh of two devices
+    part_d = None
+    if torch.cuda.device_count() == 1:
+        try:
+            make_host_mesh(1, 2)
+        except ValueError as e:
+            part_d = str(e)
+        check(part_d is not None
+              and "needs 2 devices but only 1 is visible" in part_d,
+              f"make_host_mesh(1, 2) on one card: {part_d!r}")
+
+    out = {"card": card, "A": part_a, "B": part_b, "C": part_c,
+           "D": part_d, "seconds": time.perf_counter() - t_phase}
+    emit("mesh_path", **out)
     return out
 
 
@@ -2780,12 +2984,14 @@ def cache_tiers_phase(torch) -> dict:
 
 
 def serve_cli_phase(torch, eps: float) -> dict:
-    """``python -m repro_torch.launch.serve``'s ``main`` three times over
+    """``python -m repro_torch.launch.serve``'s ``main`` four times over
     ``train_path``'s artifacts: (A) every cache tier in a temporary
     directory, 600 req/s Poisson arrivals over 4 sessions, the fused
     cascade; (B) the same again, a restart over the same directory;
-    (C) the FIFO drain with the exact tier, closed loop.  Each run's
-    summary JSON goes to ``chiprun_out/serve_cli_<run>.json``."""
+    (C) the FIFO drain with the exact tier, closed loop; (D) run C on a
+    (1, 1) mesh (``--mesh 1,1 --replicate-hot 1``), which must serve as
+    C did.  Each run's summary JSON goes to
+    ``chiprun_out/serve_cli_<run>.json``."""
     import io
     import shutil
     import tempfile
@@ -2800,7 +3006,9 @@ def serve_cli_phase(torch, eps: float) -> dict:
                      "--cache-dir", os.path.join(tmp, "t2"),
                      "--cache-semantic", repr(eps),
                      "--arrival-rate", str(CLI_RATE), "--sessions", "4"]
-    runs = {"A": tiered, "B": tiered, "C": ["--fifo"] + base}
+    runs = {"A": tiered, "B": tiered, "C": ["--fifo"] + base,
+            "D": ["--fifo"] + base + ["--mesh", "1,1", "--replicate-hot",
+                                      "1"]}
     out = {}
     try:
         for name, argv in runs.items():
@@ -2834,6 +3042,8 @@ def serve_cli_phase(torch, eps: float) -> dict:
                          "escalations": eng["cascade"]["escalations"],
                          "router_batches": eng["router_batches"],
                          "mean_mlm_loss": summary["mean_mlm_loss"],
+                         "per_expert": eng["per_expert"],
+                         "mesh": summary["mesh"],
                          "launches": counts,
                          "t2_series": [ln for ln in text.splitlines()
                                        if ln.startswith(
@@ -2845,6 +3055,18 @@ def serve_cli_phase(torch, eps: float) -> dict:
           f"restart: hit rate {b['hit_rate']}, tiers {b['tiers']}")
     check(any('tier="t2"' in ln for ln in out["B"]["t2_series"]),
           "the restart's metrics carry no t2 hits")
+    c, d = out["C"], out["D"]
+    check(d["per_expert"] == c["per_expert"] and d["flushes"] == c["flushes"]
+          and d["mean_mlm_loss"] == c["mean_mlm_loss"],
+          f"the (1, 1) mesh run D served otherwise than run C: "
+          f"{d['per_expert']} / {c['per_expert']}, {d['flushes']} / "
+          f"{c['flushes']}, loss {d['mean_mlm_loss']} / "
+          f"{c['mean_mlm_loss']}")
+    check(c["mesh"] is None and d["mesh"] is not None
+          and d["mesh"]["mesh"] == {"data": 1, "model": 1}
+          and sum(d["mesh"]["streams"]["flushes"])
+          == sum(d["flushes"].values()),
+          f"run D's mesh block: {d['mesh']}")
     check(out["A"]["launches"]["router_score"] > 0
           and out["C"]["launches"]["router_cascade"] > 0,
           "router_score (run A's T3 path) or router_cascade (run C) "
@@ -3713,6 +3935,7 @@ def main() -> int:
     setup = main_setup(torch)
     main, run_res = main_path_phase(torch, setup)
     serve_path_phase(torch, setup, run_res, main, info["nvidia_smi"])
+    mesh_path_phase(torch, setup, run_res, info["nvidia_smi"])
     sanitize_phase(torch, setup, run_res)
     autotune_phase(torch, setup, run_res)
     checkpoint_phase(torch)

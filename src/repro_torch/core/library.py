@@ -38,6 +38,13 @@ class ExpertSpec:
     params: Optional[nn.Module] = None  # the expert's Model, once built
     n_params: int = 0
 
+    def describe(self) -> str:
+        """Model-card text used by the keyword-router baseline."""
+        doms = sorted(self.train_mixture, key=self.train_mixture.get,
+                      reverse=True)[:3]
+        return (f"{self.name}: masked language model, {self.n_params} "
+                f"parameters, specialized for {', '.join(doms)}.")
+
 
 def _mix(*focus, w=0.8):
     """Mixture concentrated on focus domains, smoothed over all."""
@@ -78,8 +85,20 @@ class ModelLibrary:
     def __getitem__(self, i) -> ExpertSpec:
         return self.experts[i]
 
+    @property
+    def names(self):
+        return [e.name for e in self.experts]
+
     def sizes(self) -> np.ndarray:
         return np.array([e.n_params for e in self.experts], float)
 
     def recencies(self) -> np.ndarray:
         return np.array([e.recency for e in self.experts], float)
+
+    def set_params(self, name: str, params, n_params: int):
+        for e in self.experts:
+            if e.name == name:
+                e.params = params
+                e.n_params = n_params
+                return
+        raise KeyError(name)

@@ -242,11 +242,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(OUT_DIR),
                     help="directory of the records")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (refused)")
+                    help="not ported yet (refused): the pod meshes need "
+                         "the sharding rules and 256-512 devices")
     args = ap.parse_args(argv)
     if args.mesh is not None:
-        ap.error("--mesh is not ported yet (placement, ROADMAP queue 1 "
-                 "item 13)")
+        ap.error("--mesh is not ported yet (the sharded dry run over the "
+                 "pod meshes, ROADMAP queue 1 item 16)")
     archs = [args.arch] if args.arch else list_archs()
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
     results = []

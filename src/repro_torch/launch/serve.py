@@ -13,7 +13,7 @@ over the trained library and drive it with a Poisson arrival simulator.
       [--cache-tiers exact,persistent,semantic --cache-dir cache/ \
        --cache-semantic 0.5] \
       [--metrics-port 9109] [--metrics-out metrics.prom] \
-      [--tile-table PATH] [--sanitize]
+      [--tile-table PATH] [--sanitize] [--mesh 1,1 --replicate-hot 1]
 
 The port of ``repro.launch.serve``: the same flags, checks, request
 stream (``default_rng(0)``, the corpus's uniform domain mix, MLM masks,
@@ -49,8 +49,16 @@ NaN/inf and out-of-range checks of the routing path, the switch
 launch geometry at a launch-config table (``kernels.tiles``, written on
 the card by ``python -m repro_torch.launch.autotune``).
 
-Not ported yet, and refused rather than ignored: ``--mesh`` and
-``--replicate-hot`` (placement, ROADMAP queue 1 item 13).
+``--mesh DATA,MODEL`` serves on a (data, model) mesh
+(``launch.mesh.make_host_mesh``) over the first DATA x MODEL visible
+devices of ``--device``'s kind: decision batches split over DATA
+devices, experts placed on MODEL slices, ``--replicate-hot K`` of them
+on every slice.  Every (expert, replica, bucket) variant is run once
+before serving (``warm_mesh``), and the summary's ``"mesh"`` block
+holds the placement and the per-device streams.  A mesh larger than the
+visible devices raises the count error: one card backs only ``--mesh
+1,1``, and so does ``--device cpu``; nothing falls back to another
+device.
 """
 
 from __future__ import annotations
@@ -90,11 +98,6 @@ def parse_priority_mix(spec: str) -> list[float]:
     if not fracs or total <= 0:
         return [1.0]
     return [f / total for f in fracs]
-
-
-# flags of the JAX driver whose subsystem the port does not have yet
-NOT_PORTED = {"mesh": "placement, ROADMAP queue 1 item 13",
-              "replicate_hot": "placement, ROADMAP queue 1 item 13"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -194,9 +197,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admitted-request count that triggers "
                          "--fail-expert")
     ap.add_argument("--mesh", type=str, default="", metavar="DATA,MODEL",
-                    help="not ported yet (refused)")
+                    help="serve on a (data, model) device mesh: the "
+                         "routing stage splits decision batches over "
+                         "DATA devices and experts are placed on MODEL "
+                         "slices (needs DATA x MODEL visible devices)")
     ap.add_argument("--replicate-hot", type=int, default=0, metavar="K",
-                    help="not ported yet (refused)")
+                    help="with --mesh, replicate the K largest experts "
+                         "onto every model slice (flushes pick the "
+                         "least-busy replica stream)")
     ap.add_argument("--metrics-port", type=int, default=0, metavar="P",
                     help="serve Prometheus text metrics on "
                          "http://127.0.0.1:P/metrics during the run "
@@ -215,10 +223,6 @@ def main(argv=None) -> dict:
     summary JSON and return it as a dict."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet "
-                     f"({what})")
     if args.adapt_every > 0 and args.replay_cap <= 0:
         ap.error("--adapt-every needs a replay buffer (--replay-cap >= 1)")
     tiers = {t.strip() for t in args.cache_tiers.split(",") if t.strip()}
@@ -243,6 +247,13 @@ def main(argv=None) -> dict:
                  "cannot reorder around the health consult")
     if args.speculate and args.fifo:
         ap.error("--speculate needs the scheduler (drop --fifo)")
+    if args.mesh:
+        try:
+            mdata, mmodel = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            ap.error("--mesh expects two integers 'data,model'")
+    elif args.replicate_hot:
+        ap.error("--replicate-hot needs --mesh")
 
     if args.tile_table:
         from repro_torch.kernels import tiles
@@ -254,6 +265,11 @@ def main(argv=None) -> dict:
 
     from repro_torch.device import resolve_device
     dev = resolve_device(args.device)     # no card and no --device: raise
+    mesh = None
+    if args.mesh:
+        # over the visible devices of dev's kind; too few raise
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(mdata, mmodel, platform=dev.type)
 
     from repro_torch.core import experiment as ex
     from repro_torch.core.objective import (recency_constraint,
@@ -304,7 +320,12 @@ def main(argv=None) -> dict:
                        replay_cap=args.replay_cap,
                        health=health,
                        fallback_max_depth=args.fallback_depth,
+                       mesh=mesh, replicate_hot=args.replicate_hot,
                        device=dev)
+    if mesh is not None:
+        # every (expert, replica, bucket) variant once, so that no
+        # measured flush pays a replica's first copy or launch
+        eng.warm_mesh(args.seq)
 
     rng = np.random.default_rng(0)
     uniform = {d: 1.0 / 8 for d in corpus.tables}
@@ -415,7 +436,7 @@ def main(argv=None) -> dict:
         "fallback_depth": args.fallback_depth,
         "fail_expert": args.fail_expert or None,
         "cache_tiers": sorted(tiers) if not args.no_cache else [],
-        "mesh": None,
+        "mesh": eng.mesh_summary(),
         "device": str(eng.device),
         "wall_s": round(dt, 2),
         "req_per_s": round(len(results) / dt, 1),

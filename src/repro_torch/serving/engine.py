@@ -60,12 +60,29 @@ the kernel wrappers' checks skip inside them; ``_sanitize_batch`` checks
 each scored batch instead (token ids on the host, before the encoder
 sees them, then the predictions and the choice).
 
-Not ported yet: mesh placement.  Its knobs are absent from the
-constructor.
+Mesh placement (``mesh=``, a ``launch.mesh.Mesh`` with axes ``("data",
+"model")``): experts are placed on ``model``-axis slices
+(``serving.placement``: size-balanced, the ``replicate_hot`` largest
+replicated on every slice), and each lane flush runs on the least-busy
+device stream among its expert's replicas (``StreamClock``), blocking on
+its results as the meshless flush does; the stream clock models the
+overlap a multi-device runtime would give.  With ``data > 1`` a decision
+batch is padded to a multiple of ``data`` and split into ``data`` row
+blocks, each decided by the encoder and the ``router_score`` kernel on
+its row's first device with that device's router replica, and gathered
+in row order; the fused cascade then stays off, as in the JAX engine.
+The encoder passes of T3 and the staged sigma, and the fused cascade,
+run on the engine's ``device``, which must be the mesh's first.  A
+replica on the device that already holds the module is the module
+itself, so a ``(1, 1)`` mesh computes on exactly the meshless engine's
+tensors, and no mesh telemetry enters ``EngineStats``
+(``mesh_summary()`` holds it): the ``(1, 1)`` engine is bit for bit the
+meshless one.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import time
@@ -94,6 +111,8 @@ from repro_torch.serving.feedback import ReplayBuffer
 from repro_torch.serving.health import ExpertHealth
 from repro_torch.serving.kvstore import DiskKVStore
 from repro_torch.serving.pipeline import RouteContext, ServingPipeline
+from repro_torch.serving.placement import (PlacementMap, StreamClock,
+                                           plan_placement)
 from repro_torch.serving.requests import Request, Result, lambda_matrix
 from repro_torch.serving.scheduler import ExpertScheduler, LaneEntry
 from repro_torch.serving.semcache import SemanticCache
@@ -330,6 +349,12 @@ class TryageEngine:
       loss head only, ``"all"`` also the encoder); ``adapt_seed`` seeds
       the replay sampling.
     - ``replay_cap``: feedback replay-buffer capacity (0 disables it).
+    - ``mesh``: a ``launch.mesh.Mesh`` with axes ``("data", "model")``
+      whose first device is ``device`` (None: the single-device
+      engine).  ``placement``: the expert -> slice ``PlacementMap``
+      (default: ``plan_placement`` over the experts' parameter counts);
+      ``replicate_hot``: with the default placement, replicate the K
+      largest experts on every slice.
     - ``now_fn``: engine clock (injectable for deterministic tests).
     """
 
@@ -348,6 +373,8 @@ class TryageEngine:
                  adapt_lr: float = 1e-2, adapt_ema: float = 0.0,
                  adapt_batch: int = 32, adapt_trainable: str = "head",
                  replay_cap: int = 4096, adapt_seed: int = 0,
+                 mesh=None, placement: PlacementMap | None = None,
+                 replicate_hot: int = 0,
                  now_fn: Callable[[], float] = time.monotonic,
                  device=None):
         if len(library) != rc.n_models:
@@ -424,6 +451,131 @@ class TryageEngine:
         self._cmat_dev = torch.from_numpy(self._cmat).to(self.device)
         self._ladder_dev = torch.from_numpy(
             self._ladder_pos.astype(np.int32)).to(self.device)
+        self._expert_idx = {e.name: i for i, e in enumerate(library.experts)}
+
+        # ------------------------------------------------ mesh wiring
+        # A (data, model) mesh makes the pipeline multi-device: the
+        # routing stage splits decision batches over the "data" axis, and
+        # the Execute stage places each expert on a "model"-axis slice
+        # (serving.placement) so lane flushes land in per-device streams.
+        # mesh=None (the default) is the single-device engine: none of
+        # the fields below are consulted.
+        self.mesh = mesh
+        self.placement: PlacementMap | None = None
+        self.streams: StreamClock | None = None
+        self._data_ext = 1
+        self._mesh_rp_cache: tuple[int, list] | None = None
+        if mesh is not None:
+            missing = {"data", "model"} - set(mesh.axis_names)
+            if missing:
+                raise ValueError(f"serving mesh needs axes "
+                                 f"('data', 'model'); missing {missing}")
+            self._data_ext = int(mesh.shape["data"])
+            model_ext = int(mesh.shape["model"])
+            if placement is None:
+                placement = plan_placement(
+                    [e.n_params for e in library.experts], model_ext,
+                    replicate_hot=replicate_hot)
+            if placement.n_slices != model_ext:
+                raise ValueError(f"placement has {placement.n_slices} "
+                                 f"slices but the mesh's model axis is "
+                                 f"{model_ext}")
+            if placement.n_experts != len(library):
+                raise ValueError("placement sized for a different library")
+            # device grid (data, model): slice k owns column k; stream
+            # index == flat device index r * model_ext + k
+            grid = mesh.devices.reshape(self._data_ext, model_ext)
+            if grid[0, 0] != self.device:
+                raise ValueError(
+                    f"the mesh's first device is {grid[0, 0]}, the engine "
+                    f"runs on {self.device}: the encoder's unsharded "
+                    f"passes run on the engine's device, which must lead "
+                    f"the mesh")
+            self.placement = placement
+            self._devices = list(grid.reshape(-1))
+            self._data_devices = list(grid[:, 0])
+            self._cmat_on = {dev: self._cmat_dev.to(dev)
+                             for dev in self._data_devices}
+            self.streams = StreamClock(len(self._devices))
+            self._expert_streams = {
+                i: [r * model_ext + k
+                    for k in placement.slices_for(i)
+                    for r in range(self._data_ext)]
+                for i in range(len(library))}
+            # per-(expert, stream) replicas, filled on first dispatch so
+            # unused replicas cost nothing
+            self._expert_params_on: dict[tuple[int, int], nn.Module] = {}
+
+    @staticmethod
+    def _replica(module: nn.Module, dev: torch.device) -> nn.Module:
+        """``module`` on ``dev``: the module itself where it already
+        lives there, else a copy (made outside ``inference_mode``, so its
+        parameters stay ordinary tensors)."""
+        if module_device(module) == dev:
+            return module
+        with torch.inference_mode(False):
+            return copy.deepcopy(module).to(dev)
+
+    def _mesh_router_params(self) -> list[nn.Module]:
+        """One router replica per ``data`` device (``devices[r, 0]``),
+        rebuilt only when adaptation swaps the version (one copy per
+        snapshot, not per batch)."""
+        if (self._mesh_rp_cache is None
+                or self._mesh_rp_cache[0] != self.router_version):
+            live = self.router_params
+            self._mesh_rp_cache = (self.router_version,
+                                   [self._replica(live, dev)
+                                    for dev in self._data_devices])
+        return self._mesh_rp_cache[1]
+
+    def _expert_replica(self, ei: int, slot: int) -> nn.Module:
+        """Expert ``ei``'s replica on stream ``slot``'s device."""
+        key = (ei, slot)
+        model = self._expert_params_on.get(key)
+        if model is None:
+            model = self._replica(self.library[ei].params,
+                                  self._devices[slot])
+            self._expert_params_on[key] = model
+        return model
+
+    def mesh_summary(self) -> dict | None:
+        """Placement + per-device stream telemetry (None without a
+        mesh).  Deliberately *not* part of ``EngineStats`` — the
+        1x1-mesh engine must stay bit-for-bit identical to the meshless
+        engine, EngineStats included."""
+        if self.mesh is None:
+            return None
+        return {
+            "mesh": {k: int(v) for k, v in self.mesh.shape.items()},
+            "placement": self.placement.summary(self.library.names),
+            "streams": self.streams.summary(),
+        }
+
+    @torch.inference_mode()
+    @sanitize.owns
+    def warm_mesh(self, seq_len: int,
+                  bucket_sizes: Sequence[int] | None = None) -> int:
+        """Place every expert replica and run every (expert, replica
+        stream, bucket size) variant once, so that no flush of measured
+        traffic pays a replica's first copy or a first launch on its
+        device.  Returns the number of variants run; 0 without a mesh.
+        Streams are not charged: warming is not traffic."""
+        if self.placement is None:
+            return 0
+        if bucket_sizes is None:
+            bucket_sizes = [b for b in (1, 2, 4, 8, 16, 32, 64, 128)
+                            if b <= self.lane_target] or [self.lane_target]
+        compiled = 0
+        for ei, streams in self._expert_streams.items():
+            for slot in streams:
+                model = self._expert_replica(ei, slot)
+                for b in bucket_sizes:
+                    zi = torch.zeros((b, seq_len), dtype=torch.int32,
+                                     device=self._devices[slot])
+                    preds, _, _ = self._expert_forward(model, zi, zi, zi)
+                    preds.cpu()                   # block until it ran
+                    compiled += 1
+        return compiled
 
     @property
     def router_params(self) -> nn.Module:
@@ -446,14 +598,18 @@ class TryageEngine:
     def _bucket(self, n: int) -> int:
         return bucket_size(n) if self.buckets else n
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device if device is None else device)
 
-    def _padded(self, reqs: list[Request], lam: bool = True):
+    def _padded(self, reqs: list[Request], lam: bool = True,
+                multiple: int = 1):
         """Tokens (and lambdas) of ``reqs`` padded with zero rows to the
-        bucket size, on the device."""
+        bucket size, then to a multiple of ``multiple``, on the
+        device."""
         B = len(reqs)
         Bp = self._bucket(B)
+        Bp += -Bp % multiple
         toks = np.zeros((Bp,) + reqs[0].tokens.shape, reqs[0].tokens.dtype)
         toks[:B] = np.stack([r.tokens for r in reqs])
         out = [self._to_device(toks)]
@@ -473,15 +629,20 @@ class TryageEngine:
         """Score one batch with the router (no cache): the predicted
         per-expert losses (B, M) f32 and the chosen expert (B,) under
         each request's lambda-weighted constraints, from one
-        ``router_score`` launch after the encoder."""
+        ``router_score`` launch after the encoder (one per ``data`` block
+        on a mesh with ``data > 1``: ``_decide_sharded``)."""
         B = len(reqs)
         t0 = self._now()
         host = self._sanitize_tokens(reqs)
-        Bp, (toks, lam) = self._padded(reqs)
+        Bp, (toks, lam) = self._padded(reqs, multiple=self._data_ext)
         router = self.router_params
-        emb = router_embed(router, self.rc, {"tokens": toks})
-        pred, choice = rs_ops.router_route(emb, router.head, self._cmat_dev,
-                                           lam)
+        if self._data_ext > 1:
+            pred, choice = self._decide_sharded(toks, lam)
+        else:
+            emb = router_embed(router, self.rc, {"tokens": toks})
+            pred, choice = rs_ops.router_route(emb, router.head,
+                                               self._cmat_dev, lam)
+        # keyed by the whole padded batch, as the JAX engine records it
         tiles = self.stats.router_tiles.setdefault("router_score", {})
         if Bp not in tiles:
             tiles[Bp] = rs_ops.decision_plan(Bp, *router.head["w1"].shape)
@@ -492,6 +653,25 @@ class TryageEngine:
         self.stats.router_time_s += self._now() - t0
         self.stats.router_batches += 1
         return pred, choice
+
+    def _decide_sharded(self, toks: torch.Tensor, lam: torch.Tensor):
+        """The data-parallel decision: row block r of the padded batch
+        through the encoder and ``router_route`` on ``devices[r, 0]``
+        with that device's router replica, one block after another, the
+        results gathered in row order on the engine's device."""
+        n = toks.shape[0] // self._data_ext
+        preds, choices = [], []
+        for r, (router, dev) in enumerate(zip(self._mesh_router_params(),
+                                              self._data_devices)):
+            rows = slice(r * n, (r + 1) * n)
+            emb = router_embed(router, self.rc,
+                               {"tokens": toks[rows].to(dev)})
+            pred, choice = rs_ops.router_route(emb, router.head,
+                                               self._cmat_on[dev],
+                                               lam[rows].to(dev))
+            preds.append(pred.to(self.device))
+            choices.append(choice.to(self.device))
+        return torch.cat(preds), torch.cat(choices)
 
     @torch.inference_mode()
     @sanitize.owns
@@ -541,9 +721,12 @@ class TryageEngine:
 
     def _use_fused_cascade(self, reqs: list[Request]) -> bool:
         """Whether this batch takes the one-launch cascade decision: the
-        flag is on, the cascade is enabled, the router has an
-        uncertainty head and the batch carries cascade traffic."""
+        flag is on, the cascade is enabled, the engine is not
+        data-sharded (the sharded decision covers ``router_score``
+        only, as in the JAX engine), the router has an uncertainty head
+        and the batch carries cascade traffic."""
         return (self.fused_cascade and self.cascade_max_depth > 0
+                and self._data_ext == 1
                 and self.router_params.unc is not None
                 and any(r.min_confidence > 0.0 for r in reqs))
 
@@ -754,7 +937,13 @@ class TryageEngine:
     @sanitize.owns
     def _run_expert(self, e, reqs: list[Request]):
         """Execute one padded per-expert micro-batch; returns per-example
-        (preds, loss, acc) arrays trimmed back to len(reqs)."""
+        (preds, loss, acc) arrays trimmed back to len(reqs).
+
+        With a placement map (mesh serving) the micro-batch is
+        dispatched: the least-busy device stream among the expert's
+        replica slices runs it with the replica on that device, and its
+        blocked wall time and tokens are charged to that stream.  The
+        mesh changes *where* a flush runs, never *what* it computes."""
         n = len(reqs)
         Bp = self._bucket(n)
         S = len(reqs[0].tokens)
@@ -767,13 +956,24 @@ class TryageEngine:
                 targets[j] = r.targets
             if r.mask is not None:
                 mask[j] = r.mask
+        model, dev, slot = e.params, self.device, None
+        if self.placement is not None:
+            ei = self._expert_idx[e.name]
+            slot = self.streams.least_busy(self._expert_streams[ei])
+            dev = self._devices[slot]
+            model = self._expert_replica(ei, slot)
+            t0 = self._now()
         preds, ex_loss, ex_acc = self._expert_forward(
-            e.params, self._to_device(toks), self._to_device(targets),
-            self._to_device(mask))
+            model, self._to_device(toks, dev), self._to_device(targets, dev),
+            self._to_device(mask, dev))
+        out = (preds.cpu().numpy()[:n], ex_loss.cpu().numpy()[:n],
+               ex_acc.cpu().numpy()[:n])
+        if slot is not None:
+            # the flush's blocked wall time, charged to its stream
+            self.streams.record(slot, self._now() - t0, tokens=n * S)
         self.stats.bucket_hits[Bp] += 1
         self.stats.padded_rows += Bp - n
-        return (preds.cpu().numpy()[:n], ex_loss.cpu().numpy()[:n],
-                ex_acc.cpu().numpy()[:n])
+        return out
 
     def _route_admitted(self, reqs: list[Request]):
         """Route -> Cascade -> Fallback on one admission batch:
@@ -795,6 +995,12 @@ class TryageEngine:
         flush never loses a request: its entries are re-routed, or
         answered with terminal failed Results (``_failed_flush``)."""
         if sched.take_failure(expert_idx):
+            if self.streams is not None:
+                # a failed flush occupies no stream time, but the
+                # per-device view shows where it was headed: the stream
+                # _run_expert would have picked
+                self.streams.record_failure(self.streams.least_busy(
+                    self._expert_streams[expert_idx]))
             return self._failed_flush(sched, expert_idx, entries)
         t0 = self._now()
         out = self._execute(expert_idx, entries, reason)
@@ -931,6 +1137,9 @@ class TryageEngine:
         """
         sched = ExpertScheduler(len(self.library), self.lane_target,
                                 self.max_wait_s)
+        if self.placement is not None:
+            # each expert lane carries its home device slice
+            sched.assign_slots(self.placement)
         self.scheduler = sched
         admitted: list[Request] = []
         # deferring Cascade is sound only while Fallback is a no-op

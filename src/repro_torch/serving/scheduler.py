@@ -33,8 +33,8 @@ traffic separate, so tier-0 micro-batches stay full and per-tier
 telemetry (``EngineStats``) stays honest.
 
 A port of ``repro.serving.scheduler``: plain host code, the same rules
-and names.  Left out until the port has mesh placement: the lanes'
-device slots and ``ExpertScheduler.assign_slots``.
+and names, the lanes' device slots (``Lane.slot``,
+``ExpertScheduler.assign_slots``) included.
 """
 
 from __future__ import annotations
@@ -78,10 +78,14 @@ class Lane:
     entries it leaves behind.  ``oldest_wait`` is therefore O(1) —
     it runs for every lane on every scheduler tick, and the old
     full-lane ``min()`` re-scan made each tick O(total pending).
+    Lane slots (``slot``) are the mesh hook: the engine's placement map
+    pins each expert lane to its home device slice so flushes land in
+    that slice's execution stream (None = single-device engine).
     """
 
-    def __init__(self, expert_idx: int):
+    def __init__(self, expert_idx: int, slot: int | None = None):
         self.expert_idx = expert_idx
+        self.slot = slot
         self.entries: list[LaneEntry] = []
         self.peak = 0
         self._oldest: float | None = None
@@ -156,6 +160,17 @@ class ExpertScheduler:
         # per-lane failure injection (tests/benchmarks): outstanding
         # failure count per expert; -1 = fail every flush until cleared
         self._inject_fail: dict[int, int] = {}
+
+    def assign_slots(self, placement) -> None:
+        """Pin every expert's lanes (both tiers) to the home device
+        slice of a ``serving.placement.PlacementMap``.  Health signals
+        stay per *expert* — ``depths()``/``saturation()`` are unchanged
+        by slot assignment; the slot only tells the Execute stage which
+        device stream a flush of this lane prefers."""
+        for i, lane in self.lanes.items():
+            lane.slot = placement.home(i)
+        for i, lane in self.esc_lanes.items():
+            lane.slot = placement.home(i)
 
     # ------------------------------------------------------- routing in
 

@@ -318,7 +318,8 @@ def test_cli_writes_one_record_without_a_card(tmp_path, monkeypatch,
     assert "[OK  ] tinyllama-1.1b" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         dryrun.main(["--mesh", "pod"])
-    assert "item 13" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "sharded dry run" in err and "item 16" in err
 
 
 def test_meta_build_allocates_nothing():

@@ -45,10 +45,15 @@ with the switch on, the reference's texts on bad inputs, nothing under
 table can give it at the attention tolerances above; a table-chosen
 mLSTM chunk, forward and backward (which takes the forward's chunk)
 within 1e-4 of the largest magnitude of the plain version at the same
-chunk.
+chunk.  Mesh serving on the card: a ``(1, 1)`` mesh over the visible
+card gives the meshless engine's Results and ``EngineStats`` bit for
+bit under ``serve()`` with escalations and injected failures, and a
+``(2, 2)`` mesh over four slots of the card launches ``router_score``
+twice a router batch and decides as the meshless engine.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -61,6 +66,7 @@ from repro_torch.kernels import launches
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.kernels.router_cascade import ops as rc_ops
 from repro_torch.kernels.router_score import ops as rs_ops
@@ -1064,3 +1070,71 @@ def test_table_chosen_mlstm_chunk(tmp_path):
             assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     finally:
         tiles.set_table_path(None)
+
+
+def test_mesh_engine_on_card_is_meshless():
+    """A (1, 1) mesh over the card is bit for bit the meshless engine
+    (Results with the bytes of their arrays, ``EngineStats``), with
+    escalations and health reroutes; a (2, 2) mesh over four slots of
+    the card splits each decision into two ``router_score`` launches,
+    keeps the fused cascade off and decides as the meshless engine."""
+    _card()
+    rc = RouterConfig(n_models=3, vocab_size=64, num_layers=1, d_model=32,
+                      num_heads=2, d_ff=64)
+    lib = _library("cpu")
+    for e in lib.experts:
+        e.params.cuda()
+    router = init_router(rc, seed=9, uncertainty=True, device="cpu").cuda()
+    rng = np.random.default_rng(7)
+    mb = mlm_batch(rng.integers(4, 64, size=(64, 32)).astype(np.int32), rng,
+                   0.2, 64)
+    mix = [{}, {"size": 1.0}, {"size": 8.0}, {"recency": 2.0}]
+    card = torch.device("cuda", torch.cuda.current_device())
+    meshes = {"none": None, "1x1": make_host_mesh(1, 1),
+              "2x2": make_host_mesh(2, 2, devices=[card] * 4)}
+    out, stats, counts = {}, {}, {}
+    for name, mesh in meshes.items():
+        clock = [1.0]
+        eng = TryageEngine(lib, router, rc,
+                           [objective.size_constraint(lib),
+                            objective.recency_constraint(lib)],
+                           max_batch=32, lane_target=8, max_wait_s=1e9,
+                           fused_cascade=True, now_fn=lambda: clock[0],
+                           health=ExpertHealth(3, now_fn=lambda: clock[0]),
+                           mesh=mesh, replicate_hot=1, device="cuda")
+
+        def arrivals(eng=eng, clock=clock):
+            for i in range(96):
+                if i == 0:
+                    eng.scheduler.inject_failures(2, 2)
+                clock[0] += 0.001
+                j = i % 64
+                yield Request(uid=i, tokens=mb["tokens"][j],
+                              targets=mb["targets"][j], mask=mb["mask"][j],
+                              lambdas=mix[i % 4], min_confidence=0.99)
+
+        launches.reset_launch_counts()
+        out[name] = sorted(eng.serve(arrivals()), key=lambda r: r.uid)
+        counts[name] = launches.launch_counts()
+        stats[name] = eng.stats
+    def key(r):
+        d = dataclasses.asdict(r)
+        d["pred_losses"] = d["pred_losses"].tobytes()
+        d["predictions"] = d["predictions"].tobytes()
+        return d
+
+    assert [key(r) for r in out["1x1"]] == [key(r) for r in out["none"]]
+    assert stats["1x1"].summary() == stats["none"].summary()
+    assert stats["none"].escalations > 0 and stats["none"].reroutes > 0
+    assert counts["2x2"]["router_score"] == 2 * stats["2x2"].router_batches
+    assert counts["2x2"]["router_cascade"] == 0
+    assert counts["none"]["router_cascade"] > 0
+    for a, b in zip(out["none"], out["2x2"]):
+        if (a.expert, a.cascade_depth) == (b.expert, b.cascade_depth):
+            if a.loss is not None:
+                np.testing.assert_allclose(b.loss, a.loss, rtol=1e-5)
+            continue
+        # a near tie of the meshless row
+        lam = np.array([mix[a.uid % 4].get(c, 0.0) for c in eng._cnames])
+        sc = np.sort(a.pred_losses + lam @ eng._cmat)
+        assert sc[1] - sc[0] < 1e-5 or abs(a.confidence - 0.99) < 1e-5, a.uid

@@ -62,7 +62,7 @@ def test_every_module_imports_without_jax_or_repro():
                 "configs.qwen2_vl_72b", "kernels.sanitize",
                 "kernels.tiles", "checkpoint", "checkpoint.store",
                 "launch.roofline", "launch.op_costs", "launch.dryrun",
-                "launch.autotune"):
+                "launch.autotune", "launch.mesh", "serving.placement"):
         assert f"repro_torch.{mod}" in names, mod
 
 

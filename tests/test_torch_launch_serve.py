@@ -7,10 +7,12 @@ package's (``repro.launch.serve``).
 * every ``ap.error`` of the JAX driver fires alike with the same
   message, except the one the port drops on purpose
   (``--fused-cascade`` without ``--use-kernel``: the port always decides
-  through its kernels); the flags of subsystems not ported yet
-  (``--mesh``, ``--replicate-hot``) are refused; without a card and
-  without ``--device`` the command raises instead of serving on the
-  CPU;
+  through its kernels); without a card and without ``--device`` the
+  command raises instead of serving on the CPU;
+* the mesh flags fail alike: ``--replicate-hot`` without ``--mesh`` and
+  a malformed ``--mesh`` with the reference's messages, ``--mesh 2,4
+  --device cpu`` with the reference's count error (one CPU device backs
+  only ``--mesh 1,1``);
 * ``--sanitize`` and ``--tile-table`` are served: the summary matches
   the JAX CLI's (``"sanitize": true``) and the port's kernels consult
   the given table;
@@ -21,7 +23,8 @@ package's (``repro.launch.serve``).
   ones (``wall_s``, ``req_per_s``, latency percentiles, router, expert
   and adaptation seconds), the port's launch plans (``router_tiles``,
   the CUDA kernels' geometry, not the Pallas tiles) and the port's
-  extra ``device``.  ``--max-wait-s 10`` keeps deadlines out of the
+  extra ``device``; with ``--mesh 1,1 --replicate-hot 1`` the
+  ``"mesh"`` block is the same but for each stream's busy seconds.  ``--max-wait-s 10`` keeps deadlines out of the
   closed-loop runs, so their flushes do not depend on the host's speed.
   Tolerance: mean loss and accuracy (rounded to 4 places by the driver)
   and the adaptation errors (6 places) within 1e-5.
@@ -132,14 +135,43 @@ def test_fused_cascade_needs_only_cascade(monkeypatch, capsys):
         tserve.main(argv)
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "1,1"], ["--replicate-hot", "1"]],
-                         ids=lambda a: a[0])
-def test_flags_not_ported_are_refused(capsys, argv):
-    with pytest.raises(SystemExit) as err:
-        tserve.main(argv + ["--device", "cpu"])
-    assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert f"{argv[0]} is not ported yet" in msg and "ROADMAP" in msg
+@pytest.mark.parametrize("argv", [["--replicate-hot", "1"],
+                                  ["--mesh", "x"], ["--mesh", "1,2,3"]],
+                         ids=" ".join)
+def test_mesh_flag_errors_match_jax(monkeypatch, capsys, artifacts, argv):
+    """The JAX CLI checks the mesh flags after loading its
+    artifacts (monkeypatched here); the port before, with the same
+    messages."""
+    from repro.core import experiment as jex
+    monkeypatch.setattr(jex, "load_artifacts", lambda: artifacts[0])
+    msgs = []
+    for run in (lambda: _jax_main(monkeypatch, argv),
+                lambda: tserve.main(argv + ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as err:
+            run()
+        assert err.value.code == 2
+        msgs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert msgs[1].split("error: ")[1] == msgs[0].split("error: ")[1]
+    assert msgs[1].endswith(("--replicate-hot needs --mesh",
+                             "--mesh expects two integers 'data,model'"))
+
+
+def test_mesh_beyond_the_devices_raises_the_count_error(monkeypatch,
+                                                        artifacts):
+    """One CPU device backs only ``--mesh 1,1``: a larger mesh raises
+    the reference's count error (its first sentence; the second says
+    how each package simulates more devices), on no other device."""
+    from repro.core import experiment as jex
+    monkeypatch.setattr(jex, "load_artifacts", lambda: artifacts[0])
+    msgs = []
+    for run in (lambda: _jax_main(monkeypatch, ["--mesh", "2,4"]),
+                lambda: tserve.main(["--mesh", "2,4", "--device", "cpu"])):
+        with pytest.raises(ValueError, match="needs 8 devices but only 1 "
+                                             "is visible") as err:
+            run()
+        msgs.append(str(err.value))
+    assert msgs[1].split(". ")[0] == msgs[0].split(". ")[0]
+    assert "devices=" in msgs[1]
 
 
 def test_serving_without_a_card_raises(monkeypatch):
@@ -182,6 +214,9 @@ def _comparable(summary):
     s = json.loads(json.dumps(summary))
     for key in ("wall_s", "req_per_s", "device"):
         s.pop(key, None)
+    if s["mesh"] is not None:     # stream busy time is wall time
+        for key in ("busy_s", "makespan_s", "total_busy_s"):
+            s["mesh"]["streams"].pop(key)
     eng = s["engine"]
     for key in ("router_time_s", "expert_time_s", "latency", "router_tiles"):
         eng.pop(key)
@@ -212,6 +247,8 @@ MAIN_CASES = {
     "tiers": ["--cache-tiers", "exact,persistent,semantic",
               "--cache-semantic", "0.05", "--cascade", "0.6",
               "--fused-cascade"],
+    "mesh": ["--mesh", "1,1", "--replicate-hot", "1", "--cascade", "0.6",
+             "--fused-cascade"],
 }
 
 
@@ -251,6 +288,15 @@ def test_main_matches_jax(monkeypatch, capsys, tmp_path, artifacts, case):
                  if ln.startswith("tryage_cache_tier_hits_total{")]
         assert tiers == [ln for ln in jtext.splitlines()
                          if ln.startswith("tryage_cache_tier_hits_total{")]
+        if case == "mesh":
+            # the placement and streams' counts were held above (b == a)
+            assert got["mesh"]["mesh"] == {"data": 1, "model": 1}
+            assert got["mesh"]["placement"]["per_slice"] == {
+                0: ["small", "mid", "big"]}
+            assert sum(got["mesh"]["streams"]["flushes"]) == sum(
+                got["engine"]["flushes"].values())
+        else:
+            assert got["mesh"] is ref["mesh"] is None
         if case == "tiers" and run == 1:
             # the restart answers every request from T2
             assert got["engine"]["cache"]["tiers"] == {"t2": 96}

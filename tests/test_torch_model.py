@@ -100,3 +100,31 @@ def test_paper_library_sizes_match(tiny_library):
         abstract, _ = init_model_logical(je.cfg)
         n = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(abstract))
         assert count_params(init_model(te.cfg, device="cpu")) == n
+
+
+def test_library_methods_match(tiny_library):
+    """``ExpertSpec.describe``, ``ModelLibrary.names`` and
+    ``ModelLibrary.set_params`` of the port against the JAX package's,
+    on the paper library's specs (with parameter counts set) and on
+    ``tiny_library`` through the bridge."""
+    from repro.core.library import ModelLibrary as JLibrary
+    from repro.core.library import paper_library_specs as jspecs
+    from repro_torch.core.library import ModelLibrary as TLibrary
+    from repro_torch.core.library import paper_library_specs as tspecs
+    jlib, tlib = JLibrary(jspecs(512)), TLibrary(tspecs(512))
+    assert tlib.names == jlib.names
+    for k, (je, te) in enumerate(zip(jlib.experts, tlib.experts)):
+        jlib.set_params(je.name, None, 1000 + k)
+        tlib.set_params(te.name, None, 1000 + k)
+        assert te.n_params == je.n_params == 1000 + k
+        assert te.describe() == je.describe()
+    model = torch.nn.Linear(2, 2)
+    tlib.set_params("mathbert-analog", model, 6)
+    assert tlib[9].params is model and tlib[9].n_params == 6
+    for lib in (jlib, tlib):
+        with pytest.raises(KeyError, match="no-such-expert"):
+            lib.set_params("no-such-expert", None, 1)
+    port = bridge.library_from_jax(tiny_library, device="cpu")
+    assert port.names == [e.name for e in tiny_library.experts]
+    assert [e.describe() for e in port.experts] == [
+        e.describe() for e in tiny_library.experts]
