@@ -144,7 +144,17 @@ just before it and read just after:
   tinyllama-1.1b at a 4 x 512 prefill and train step, then the same
   steps on the card: parameter bytes exact; the predicted peak, dot
   FLOPs (``FlopCounterMode`` plus the kernels' recorded work) and the
-  roofline's bound beside the measured ones (reported, not gated).
+  roofline's bound beside the measured ones (reported, not gated);
+* ``sharded_path``: the sharded steps (``launch.steps`` with ``mesh=``)
+  on a one-rank NCCL group (a ``FileStore``, no network) and a (1, 1)
+  ``DeviceMesh`` over the card: tinyllama-1.1b at full width in bf16,
+  one ``train_step`` at 4 x 512 sharded and meshless from the same
+  weights (loss and every parameter bit for bit, else within a stated
+  tolerance), ``prefill_step`` and 8 greedy ``serve_step``s both ways
+  (identical tokens), the same attention launches both ways and no
+  plain version; then the pod dry run (``launch.dryrun --mesh pod``) of
+  tinyllama-1.1b ``train_4k`` and qwen1.5-0.5b ``decode_32k`` in a
+  subprocess, per-device parameter bytes against the specs' sum.
 
 It checks that every kernel of each path was launched in that path's
 run, and times each kernel beside its bound; the router heads also at
@@ -3872,6 +3882,192 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
     return out
 
 
+SHARDED_ARCH, SHARDED_B, SHARDED_S, SHARDED_STEPS = "tinyllama-1.1b", 4, 512, 8
+# the pod dry-run pairs of sharded_path: (arch, shape)
+SHARDED_POD = (("tinyllama-1.1b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"))
+
+
+def sharded_path_phase(torch) -> dict:
+    """The sharded steps on the card: (a) a one-rank NCCL group (a
+    ``FileStore`` in a temporary directory, no network) and a (1, 1)
+    ``DeviceMesh`` over the card; tinyllama-1.1b at full width in bf16
+    (zoo_train's type) takes one ``train_step`` at 4 x 512 sharded
+    (``shard_model``, ``mesh=``) and, from a ``deepcopy`` of the same
+    weights, meshless: the loss, every parameter and both AdamW moments
+    bit for bit (on a (1, 1) mesh every placement is ``Replicate``, so
+    each op is the meshless op on the whole tensor; any difference is a
+    fault, and the largest is printed); then
+    ``prefill_step`` and SHARDED_STEPS greedy ``serve_step``s both ways,
+    the tokens identical; (b) the attention forward and backward launch
+    counts of the sharded step equal the meshless step's, and no plain
+    version runs; (c) after the group is destroyed, the pod dry run of
+    SHARDED_POD in a subprocess (the fake world cannot share a process
+    with an NCCL group): per-device peak, dot FLOPs, collective bytes by
+    kind and t_bound, and per-device parameter bytes equal to the sum of
+    the shards worked out from the specs by hand."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import device_mesh, make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH)
+    out = {"config": SHARDED_ARCH, "dtype": cfg.dtype,
+           "batch": [SHARDED_B, SHARDED_S]}
+    with tempfile.TemporaryDirectory() as tmp, plain_calls() as plain:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = device_mesh(make_host_mesh(1, 1, devices=["cuda:0"]))
+            ref = model_lib.init_model(cfg, seed=31, device="cuda")
+            model = copy.deepcopy(ref)
+            steps.shard_model(model, mesh, steps.rules_for(mesh))
+            ref_opt, opt = adamw_init(ref), adamw_init(model)
+            batch = {"tokens": zoo_tokens(torch, cfg, SHARDED_B, SHARDED_S,
+                                          31)}
+            counts = {}
+            losses = {}
+            for name, m, o, kw in (("meshless", ref, ref_opt, {}),
+                                   ("sharded", model, opt, {"mesh": mesh})):
+                torch.cuda.synchronize()
+                launches.reset_launch_counts()
+                loss = steps.train_step(m, o, batch, lr=ZOO_TRAIN_LR,
+                                        device="cuda", **kw)
+                torch.cuda.synchronize()
+                counts[name] = launches.launch_counts()
+                losses[name] = (loss.full_tensor() if "mesh" in kw
+                                else loss).float()
+            for k in ("flash_attention", "flash_attention_bwd"):
+                check(counts["sharded"][k] == counts["meshless"][k] > 0,
+                      f"sharded_path: {k} launches {counts}")
+            diffs = {"loss": float((losses["sharded"]
+                                    - losses["meshless"]).abs())}
+            for n, p in ref.named_parameters():
+                for what, want, got in (
+                        ("weight", p, model.get_parameter(n)),
+                        ("mu", ref_opt.mu[n], opt.mu[n]),
+                        ("nu", ref_opt.nu[n], opt.nu[n])):
+                    got = got.detach().full_tensor().float()
+                    diffs[what] = max(diffs.get(what, 0.0), float(
+                        (got - want.detach().float()).abs().max()))
+            bit = not any(diffs.values())
+            out["train"] = {
+                "loss_meshless": float(losses["meshless"]),
+                "loss_sharded": float(losses["sharded"]),
+                "bit_for_bit": bit, "max_abs_diff": diffs,
+                "launches_meshless": counts["meshless"],
+                "launches_sharded": counts["sharded"]}
+            check(bit, f"sharded_path: the (1, 1) train step is not bit for "
+                       f"bit the meshless one: {out['train']}")
+            del ref_opt, opt
+            torch.cuda.empty_cache()
+            toks = {}
+            cap = SHARDED_S + SHARDED_STEPS
+            for name, m, kw in (("meshless", ref, {}),
+                                ("sharded", model, {"mesh": mesh})):
+                logits, state = steps.prefill_step(
+                    m, batch, cache_capacity=cap, device="cuda", **kw)
+                if kw:
+                    logits = logits.full_tensor()
+                tok = logits.argmax(-1).to(torch.int32)[:, None]
+                seq = [tok]
+                for i in range(SHARDED_STEPS):
+                    tok, state = steps.serve_step(m, state, tok, SHARDED_S + i,
+                                                  device="cuda", **kw)
+                    if kw:
+                        tok = tok.full_tensor()
+                    seq.append(tok)
+                toks[name] = torch.cat(seq, 1).cpu().tolist()
+                del state
+            check(toks["sharded"] == toks["meshless"],
+                  f"sharded_path: greedy tokens {toks}")
+            out["decode"] = {"steps": SHARDED_STEPS,
+                             "tokens": toks["meshless"], "identical": True}
+            del ref, model
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    check(not any(plain.values()),
+          f"sharded_path: plain versions ran on the card: {plain}")
+    out["plain_calls"] = plain
+    out["card_s"] = time.perf_counter() - t0
+    out["pod"] = sharded_pod_dryrun()
+    out["seconds"] = time.perf_counter() - t0
+    emit("sharded_path", **out)
+    return out
+
+
+def sharded_pod_dryrun() -> list:
+    """``launch.dryrun.run_one(mesh="pod")`` of SHARDED_POD in a
+    subprocess; each record's per-device parameter bytes against the
+    sum of its shards worked out here from the logical specs."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import production_shape
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import logical_to_spec
+
+    out_dir = ROOT / "chiprun_out" / "dryrun_pod"
+    code = ("import sys; from repro_torch.launch import dryrun\n"
+            "for a, s in %r:\n"
+            "    r = dryrun.run_one(a, s, mesh='pod', out_dir=sys.argv[1])\n"
+            "    print(a, s, r['status'], r.get('error', ''), flush=True)\n"
+            % (SHARDED_POD,))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, str(out_dir)],
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(proc.returncode == 0, f"sharded_path: pod dry run failed: "
+                                f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    seconds = time.perf_counter() - t0
+    dims, names = production_shape()
+
+    class Sizes:
+        shape = dict(zip(names, dims))
+        axis_names = names
+
+    recs = []
+    for arch, shape in SHARDED_POD:
+        rec = json.loads((out_dir / f"{arch}_{shape}_pod.json").read_text())
+        check(rec["status"] == "OK", f"sharded_path: pod {arch} {shape}: "
+                                     f"{rec.get('error')}")
+        knobs, _ = dryrun.knobs_for(arch, shape, "pod")
+        rules = steps.rules_for(Sizes, knobs)
+        abstract, logical = model_lib.init_model_logical(get_config(arch))
+        hand = 0
+        for n, t in abstract.items():
+            spec = logical_to_spec(Sizes, logical[n], t.shape, rules)
+            ways = math.prod(math.prod(Sizes.shape[a] for a in (
+                (e,) if isinstance(e, str) else e)) for e in spec
+                if e is not None)
+            hand += t.numel() // ways * t.element_size()
+        mem, coll = rec["memory"], rec["collectives"]
+        check(mem["parameter_bytes"] == hand,
+              f"sharded_path: pod {arch} {shape} parameter bytes "
+              f"{mem['parameter_bytes']}, by hand {hand}")
+        recs.append({
+            "arch": arch, "shape": shape, "n_chips": rec["n_chips"],
+            "parameter_bytes_per_device": hand,
+            "peak_gib_per_device": mem["peak_bytes_per_device"] / 2**30,
+            "dot_flops_per_device": rec["cost"]["dot_flops"],
+            "collective_bytes": {k: v["bytes"] for k, v in coll.items()
+                                 if isinstance(v, dict)},
+            "t_bound_s": rec["roofline"]["t_bound_s"],
+            "dominant": rec["roofline"]["dominant"],
+            "trace_s": rec["trace_s"]})
+    recs.append({"subprocess_s": seconds})
+    return recs
+
+
 def launch_floor(torch, plan: dict) -> dict:
     """Events and device time of the empty kernel ``launch_floor_kernel``
     (``csrc/launch_floor.cu``) launched through ``build.launch``: one
@@ -3940,6 +4136,7 @@ def main() -> int:
     autotune_phase(torch, setup, run_res)
     checkpoint_phase(torch)
     dryrun_phase(torch)
+    sharded_path_phase(torch)
     xlstm, corpus = xlstm_serve_phase(torch)
     xlstm_crosscheck_phase(torch, corpus)
     zoo_serve_phase(torch)

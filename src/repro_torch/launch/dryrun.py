@@ -1,5 +1,6 @@
-"""One-card dry run: judge each (arch x shape) pair without running a
-model, and count its step's work (the port of ``repro.launch.dryrun``).
+"""Dry run: judge each (arch x shape) pair without running a model,
+and count its step's work on one card or on each device of a pod mesh
+(the port of ``repro.launch.dryrun``).
 
 The reference lowers and compiles each pair on a 512-device host mesh
 and reads XLA's memory and cost analyses.  The port has no compiler to
@@ -26,15 +27,33 @@ and no storage, so no weight is allocated and nothing is launched, under
     gives, or ``FAIL`` with ``error`` and ``trace``) and ``trace_s``,
     the seconds the trace took.
 
-``knobs_for`` keeps the reference's per-pair knobs that mean something
-on one card (``microbatch``, ``unit_group``); ``moment_dtype`` is
-``float32`` (``train_step`` refuses bf16 moments) and
-``rule_overrides`` has no meaning without a mesh: each knob dropped is
-written into the record with the reference's value.
+With ``--mesh pod`` (16 x 16, 256 devices) or ``--mesh multipod``
+(2 x 16 x 16, 512) each pair is traced as rank 0 of a ``fake`` process
+group of that size (``launch.mesh.fake_world``) on a ``DeviceMesh`` of
+the pod's shape: the model, the AdamW moments, the batch and the decode
+state are DTensors of ``meta`` shards laid out by the logical rules
+(``launch.steps.rules_for``, the pair's ``rule_overrides`` included)
+and the step runs sharded (``mesh=``).  The counter then counts one
+device's work, as the reference's post-SPMD numbers are, and each
+record adds the reference's per-device fields: ``n_chips``, ``memory``
+of one device (arguments as local shards), ``collectives`` (bytes and
+counts by kind; the fake group's mesh is a CPU one, where DTensor turns
+an all-to-all into an all-gather and a slice), a ``roofline`` with the
+collective term, ``model_flops_global``, ``model_flops_per_chip`` and
+``useful_flops_frac`` (per chip).  Without ``--mesh`` the records are
+the one-card ones.
+
+``knobs_for`` keeps the reference's per-pair knobs that the port runs
+(``microbatch``, ``unit_group``, and on a mesh ``rule_overrides``);
+``moment_dtype`` is ``float32`` (``train_step`` refuses bf16 moments)
+and without a mesh ``rule_overrides`` lays out nothing: each knob
+dropped is written into the record with the reference's value.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
       --shape prefill_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod \\
+      --arch qwen1.5-0.5b --shape decode_32k
 
 Runs on any host: the meta device needs no card.  Records go to
 ``experiments/dryrun_torch/`` (``--out``).
@@ -44,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -52,6 +72,7 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import specs, steps
+from repro_torch.launch.mesh import fake_world, production_shape
 from repro_torch.launch.op_costs import OpCounter
 from repro_torch.launch.roofline import (PRESETS, Roofline, active_params,
                                          model_flops)
@@ -59,14 +80,15 @@ from repro_torch.launch.steps import PerfKnobs
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import INPUT_SHAPES, InputShape
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.sharding.context import is_dtensor
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 HW = PRESETS["h100"]
 META = torch.device("meta")
 
 # The reference's per-pair knobs (src/repro/launch/dryrun.py:31-84):
-# (arch, shape) -> {knob: value}.  rule_overrides and bf16 moments are
-# the knobs dropped here.
+# (arch, shape) -> {knob: value}.  bf16 moments are dropped here, and
+# rule_overrides without a mesh.
 _RULES_KV = {"cache": None, "embed": None}
 REFERENCE_KNOBS = {
     ("jamba-v0.1-52b", "decode_32k"): {"rule_overrides": {
@@ -92,13 +114,17 @@ REFERENCE_KNOBS = {
     ("qwen2-moe-a2.7b", "train_4k"): {"microbatch": 4},
 }
 KEPT = ("microbatch", "unit_group")
+MESH_KEPT = KEPT + ("rule_overrides",)
+MESHES = {"pod": False, "multipod": True}     # --mesh -> multi_pod
 
 
-def knobs_for(arch: str, shape: str) -> tuple[PerfKnobs, dict]:
+def knobs_for(arch: str, shape: str,
+              mesh: str | None = None) -> tuple[PerfKnobs, dict]:
     """(the knobs this pair runs with, the reference's knobs dropped)."""
     ref = REFERENCE_KNOBS.get((get_config(arch).name, shape), {})
-    kept = {k: v for k, v in ref.items() if k in KEPT}
-    dropped = {k: v for k, v in ref.items() if k not in KEPT}
+    keep = KEPT if mesh is None else MESH_KEPT
+    kept = {k: v for k, v in ref.items() if k in keep}
+    dropped = {k: v for k, v in ref.items() if k not in keep}
     return PerfKnobs(**kept), dropped
 
 
@@ -113,11 +139,14 @@ def _meta_inputs(cfg, shape: InputShape) -> dict:
 
 
 def _storages(tree) -> dict:
-    """Storage key -> bytes of every tensor in ``tree``."""
+    """Storage key -> bytes of every tensor in ``tree`` (a DTensor's:
+    this device's shard)."""
     out = {}
 
     def rec(x):
-        if isinstance(x, torch.Tensor):
+        if is_dtensor(x):
+            rec(x.to_local())
+        elif isinstance(x, torch.Tensor):
             st = x.untyped_storage()
             out[st._cdata] = st.nbytes()
         elif isinstance(x, dict):
@@ -133,29 +162,56 @@ def _storages(tree) -> dict:
     return out
 
 
-def trace_step(cfg, shape: InputShape, knobs: PerfKnobs) -> dict:
+def trace_step(cfg, shape: InputShape, knobs: PerfKnobs,
+               mesh=None) -> dict:
     """Build the model on meta, trace one step under ``OpCounter``:
-    (memory, cost, total parameters)."""
+    (memory, cost, total parameters).  With ``mesh`` (a ``DeviceMesh``
+    of a fake world) the step runs sharded and every number is one
+    device's: the model, moments, batch and state are laid out by the
+    rules first, and the batch counts as its shard (the step lays each
+    microbatch out as it cuts it)."""
     model = model_lib.init_model(cfg, device=META)
+    total = model_lib.count_params(model)
     inputs = _meta_inputs(cfg, shape)
-    args = {"parameter": dict(model.named_parameters()), "input": inputs}
+    rules = None
+    if mesh is not None:
+        rules = steps.rules_for(mesh, knobs)
+        steps.shard_model(model, mesh, rules)
+    args = {"parameter": dict(model.named_parameters()),
+            "input": (inputs if mesh is None
+                      else steps.shard_batch(inputs, mesh, rules))}
     if shape.kind == "train":
         args["optimizer"] = adamw_init(model)
     elif shape.kind == "decode":
         args["cache"] = model_lib.init_decode_state(
             cfg, shape.global_batch, shape.seq_len, device=META)
+        if mesh is not None:
+            args["cache"] = steps.shard_decode_state(args["cache"], cfg,
+                                                     mesh, rules)
     arg_bytes = _storages(args)
     groups = {f"{name}_bytes": sum(_storages(v).values())
               for name, v in args.items()}
-    with OpCounter() as counter:
+    if mesh is not None and shape.kind == "train":
+        args["input"] = inputs
+
+    def step():
         if shape.kind == "train":
-            out = steps.train_step(model, args["optimizer"], inputs,
-                                   knobs=knobs, device=META)
-        elif shape.kind == "prefill":
-            out = steps.prefill_step(model, inputs, device=META)
-        else:
-            out = steps.serve_step(model, args["cache"], inputs["tokens"],
-                                   shape.seq_len - 1, device=META)
+            return steps.train_step(model, args["optimizer"], args["input"],
+                                    knobs=knobs, device=META, mesh=mesh)
+        if shape.kind == "prefill":
+            return steps.prefill_step(model, args["input"], device=META,
+                                      mesh=mesh, knobs=knobs)
+        return steps.serve_step(model, args["cache"], args["input"]["tokens"],
+                                shape.seq_len - 1, device=META, mesh=mesh,
+                                knobs=knobs)
+
+    if mesh is not None:
+        # fill DTensor's sharding-propagation cache first: its shape
+        # inference runs each new op on global-size meta tensors, which
+        # the counter would take for this device's temporaries
+        step()
+    with OpCounter() as counter:
+        out = step()
     out_bytes = {k: n for k, n in _storages(out).items()
                  if k not in arg_bytes}
     argument = sum(arg_bytes.values())
@@ -169,16 +225,20 @@ def trace_step(cfg, shape: InputShape, knobs: PerfKnobs) -> dict:
               "device_bytes": card,
               "fits_one_card": argument + temp <= card}
     return {"memory": memory, "cost": counter.totals(),
-            "total_params": model_lib.count_params(model)}
+            "total_params": total}
 
 
 def run_one(arch: str, shape, tag: str = "", knobs: PerfKnobs | None = None,
-            save: bool = True, out_dir: Path | None = None) -> dict:
+            save: bool = True, out_dir: Path | None = None,
+            mesh: str | None = None) -> dict:
     """Judge and trace one pair; ``shape`` is a name of ``INPUT_SHAPES``
-    or an ``InputShape``.  Returns the record (and saves it)."""
+    or an ``InputShape``; ``mesh`` is ``None`` (one card), ``"pod"`` or
+    ``"multipod"``.  Returns the record (and saves it)."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
-    rec = {"arch": arch, "shape": shape.name, "mesh": None, "tag": tag,
+    if mesh is not None and mesh not in MESHES:
+        raise ValueError(f"mesh {mesh!r} not in {sorted(MESHES)}")
+    rec = {"arch": arch, "shape": shape.name, "mesh": mesh, "tag": tag,
            "seq_len": shape.seq_len, "global_batch": shape.global_batch,
            "kind": shape.kind}
     ok, reason = specs.applicable(cfg, shape)
@@ -187,10 +247,13 @@ def run_one(arch: str, shape, tag: str = "", knobs: PerfKnobs | None = None,
         return _done(rec, save, out_dir)
     dropped = {}
     if knobs is None:
-        knobs, dropped = knobs_for(arch, shape.name)
+        knobs, dropped = knobs_for(arch, shape.name, mesh)
     t0 = time.perf_counter()
     try:
-        traced = trace_step(cfg, shape, knobs)
+        if mesh is None:
+            traced, n_chips = trace_step(cfg, shape, knobs), 1
+        else:
+            traced, n_chips = _trace_on_mesh(cfg, shape, knobs, mesh)
     except Exception as e:  # noqa: BLE001 — record the failure verbatim
         rec.update(status="FAIL", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-4000:])
@@ -200,23 +263,44 @@ def run_one(arch: str, shape, tag: str = "", knobs: PerfKnobs | None = None,
                   collective_bytes=cost["collective_bytes"], hw=HW)
     act = active_params(cfg, traced["total_params"])
     mf = model_flops(cfg, shape, act)
+    knob_rec = {"microbatch": knobs.microbatch,
+                "moment_dtype": knobs.moment_dtype, "remat": knobs.remat,
+                "unit_group": knobs.unit_group}
+    if mesh is not None:
+        knob_rec["rule_overrides"] = knobs.rule_overrides
     rec.update(
         status="OK",
-        knobs={"microbatch": knobs.microbatch,
-               "moment_dtype": knobs.moment_dtype, "remat": knobs.remat,
-               "unit_group": knobs.unit_group},
+        knobs=knob_rec,
         dropped_knobs=dropped,
-        n_chips=1,
+        n_chips=n_chips,
         trace_s=time.perf_counter() - t0,
         total_params=traced["total_params"],
         active_params=int(act),
         memory=traced["memory"],
         cost=cost,
-        roofline=rl.as_dict(),
-        model_flops=mf,
-        useful_flops_frac=(mf / cost["dot_flops"] if cost["dot_flops"]
-                           else None))
+        roofline=rl.as_dict())
+    if mesh is None:
+        rec.update(model_flops=mf,
+                   useful_flops_frac=(mf / cost["dot_flops"]
+                                      if cost["dot_flops"] else None))
+    else:
+        rec.update(collectives=cost["collectives"], model_flops_global=mf,
+                   model_flops_per_chip=mf / n_chips,
+                   useful_flops_frac=(mf / n_chips / cost["dot_flops"]
+                                      if cost["dot_flops"] else None))
     return _done(rec, save, out_dir)
+
+
+def _trace_on_mesh(cfg, shape: InputShape, knobs: PerfKnobs, mesh: str):
+    """``trace_step`` as rank 0 of a fake world of the pod mesh's size:
+    (traced, number of devices)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dims, names = production_shape(MESHES[mesh])
+    n = math.prod(dims)
+    with fake_world(n):
+        dmesh = init_device_mesh("cpu", dims, mesh_dim_names=names)
+        return trace_step(cfg, shape, knobs, mesh=dmesh), n
 
 
 def _done(rec: dict, save: bool, out_dir: Path | None) -> dict:
@@ -224,7 +308,9 @@ def _done(rec: dict, save: bool, out_dir: Path | None) -> dict:
         d = Path(out_dir or OUT_DIR)
         d.mkdir(parents=True, exist_ok=True)
         tag = f"_{rec['tag']}" if rec.get("tag") else ""
-        with open(d / f"{rec['arch']}_{rec['shape']}{tag}.json", "w") as f:
+        mesh = f"_{rec['mesh']}" if rec.get("mesh") else ""
+        with open(d / f"{rec['arch']}_{rec['shape']}{mesh}{tag}.json",
+                  "w") as f:
             json.dump(rec, f, indent=1)
     return rec
 
@@ -241,20 +327,19 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=str(OUT_DIR),
                     help="directory of the records")
-    ap.add_argument("--mesh", default=None,
-                    help="not ported yet (refused): the pod meshes need "
-                         "the sharding rules and 256-512 devices")
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
+                    help="trace one device of the 16 x 16 pod or the "
+                         "2 x 16 x 16 multipod (a fake process group of "
+                         "256 or 512 ranks); default: one card")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh is not ported yet (the sharded dry run over the "
-                 "pod meshes, ROADMAP queue 1 item 16)")
     archs = [args.arch] if args.arch else list_archs()
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
     results = []
     for a in archs:
         for s in shapes:
             t0 = time.time()
-            rec = run_one(a, s, tag=args.tag, out_dir=Path(args.out))
+            rec = run_one(a, s, tag=args.tag, out_dir=Path(args.out),
+                          mesh=args.mesh)
             status = rec["status"]
             if status == "OK":
                 mem = rec["memory"]
@@ -262,6 +347,9 @@ def main(argv=None) -> int:
                          f"t_bound={rec['roofline']['t_bound_s']:.4g}s "
                          f"peak={mem['peak_bytes_per_device'] / 2**30:.2f}GiB "
                          f"fits={mem['fits_one_card']}")
+                if args.mesh:
+                    coll = rec["collectives"]["total_bytes"] / 2**30
+                    extra += f" coll={coll:.3f}GiB"
             elif status == "FAIL":
                 extra = rec["error"][:160]
             else:

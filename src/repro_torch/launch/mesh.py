@@ -15,10 +15,18 @@ device (``make_host_mesh(2, 4, devices=["cuda:0"] * 8)``, or eight CPU
 slots in the tests): the port's counterpart of XLA's forced host device
 count, so a (2, 4) mesh runs on one card.  A repeated device is only
 ever the caller's choice, never a quiet fallback.
+
+``device_mesh`` turns a ``Mesh`` into the
+``torch.distributed.device_mesh.DeviceMesh`` that the sharded steps lay
+DTensors on: one process (rank) per device.  ``fake_world`` opens a
+process group of ``n`` ranks in one process on torch's ``fake``
+backend, whose collectives move nothing: the dry run traces a pod's
+step on it as rank 0 of 256 or 512.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -92,11 +100,71 @@ def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], devices,
     return Mesh(grid.reshape(shape), axes)
 
 
+def production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the pod mesh: 16 x 16, or 2 x 16 x 16."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The pod mesh over the visible CUDA cards; raises on fewer."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, None, "cuda")
+    return _mesh(*production_shape(multi_pod), None, "cuda")
+
+
+def device_mesh(mesh: Mesh):
+    """``mesh`` as a ``DeviceMesh`` with the same axis names: rank r of
+    the initialised process group runs on ``mesh.devices.flat[r]``, so
+    the group must have one rank per device of the mesh.  A mesh that
+    repeats a CUDA device is refused: NCCL cannot place two ranks on one
+    card (the CPU may hold several ranks, one process each, on gloo)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    flat = list(mesh.devices.reshape(-1))
+    kinds = {d.type for d in flat}
+    if len(kinds) != 1:
+        raise ValueError(f"mesh mixes device kinds {sorted(kinds)}")
+    kind = kinds.pop()
+    cards = [d for d in flat if d.type == "cuda"]
+    if len(set(cards)) != len(cards):
+        raise ValueError(
+            f"{mesh} repeats a CUDA device: a DeviceMesh has one rank per "
+            f"device and NCCL cannot place two ranks on one card; give "
+            f"each rank its own card")
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group) with one "
+                           "rank per device of the mesh")
+    if dist.get_world_size() != len(flat):
+        raise ValueError(f"{mesh} has {len(flat)} devices but the process "
+                         f"group has {dist.get_world_size()} ranks")
+    if kind == "cuda":
+        torch.cuda.set_device(flat[dist.get_rank()])
+    ranks = torch.arange(len(flat)).reshape(mesh.devices.shape)
+    return DeviceMesh(kind, ranks, mesh_dim_names=mesh.axis_names)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A process group of ``n`` ranks in this process, this process rank
+    0, on the ``fake`` backend (collectives return at once and move
+    nothing): enough to lay DTensors of a 256- or 512-device mesh on
+    ``meta`` tensors and count their collectives.  The backend comes
+    from ``torch.testing._internal.distributed.fake_pg``, a module that
+    torch keeps internal (no stability promise); this is the port's only
+    import of it.  The group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(data: int = 1, model: int = 1, devices=None,

@@ -13,8 +13,18 @@ tensors) and adds up, with the reference's rules:
     least ``TRAFFIC_MIN_BYTES`` (16 KiB), plus each dot's operand bytes
     (the reference assumes bf16 operands; here each operand's own
     type), views excluded (they move no data);
-  * ``collective_bytes``: 0 (one card);
+  * ``collective_bytes``: the output bytes of each collective
+    (``c10d_functional`` / ``_c10d_functional`` ops, which DTensor's
+    redistributions issue), and ``collectives``, bytes and counts by the
+    reference's kinds (``repro.launch.hlo_stats.collective_stats``):
+    0 on one card;
   * ``n_ops``, and ``op_histogram`` over the aten ops by name.
+
+Under DTensor (a sharded step) the counts are per device, as the
+reference's post-SPMD numbers are: a DTensor-level op reaches the mode
+first, which hands it to DTensor uncounted (``NotImplemented``) with the
+mode still open, so the ops DTensor runs on this rank's local shards,
+and its collectives, are what is counted.
 
 A Python loop is counted as often as it runs, so nothing needs the
 reference's while-loop trip counts.
@@ -56,6 +66,25 @@ ALLOCS = {_aten.empty, _aten.empty_like, _aten.empty_strided,
 LOGS: list = []
 _hidden = 0
 _composite: dict = {}     # op -> whether it has a composite decomposition
+
+# the reference's collective kinds (repro.launch.hlo_stats.COLLECTIVES)
+# by functional collective op name
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLLECTIVE_KIND = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _is_dtensor_op(args, kwargs) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor)
+               for t in pytree.tree_leaves((args, kwargs)))
 
 
 def _decomposes(func) -> bool:
@@ -135,6 +164,7 @@ class OpCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live: set = set()
+        self.collectives = {k: {"bytes": 0, "count": 0} for k in COLLECTIVES}
 
     def __enter__(self):
         self.log.__enter__()
@@ -148,6 +178,10 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _is_dtensor_op(args, kwargs):
+            # DTensor runs it on the local shards, with this mode on the
+            # stack: those ops are what is counted
+            return NotImplemented
         if func._overloadpacket not in DOTS and _decomposes(func):
             # a composite op (einsum, matmul under inference_mode) reaches
             # the mode whole: count the ops it is made of instead
@@ -161,6 +195,14 @@ class OpCounter(TorchDispatchMode):
         self._follow(outs)
         packet = func._overloadpacket
         if _hidden or func.is_view or packet in ALLOCS:
+            return out
+        if func.namespace in ("_c10d_functional", "c10d_functional"):
+            # a collective (or its wait): link bytes, not memory traffic
+            kind = _COLLECTIVE_KIND.get(packet.__name__)
+            if kind is not None:
+                self.collectives[kind]["bytes"] += sum(_nbytes(t)
+                                                       for t in outs)
+                self.collectives[kind]["count"] += 1
             return out
         self.n_ops += 1
         self.hist[packet.__name__] += 1
@@ -199,9 +241,13 @@ class OpCounter(TorchDispatchMode):
         work included, plus ``op_histogram`` and the split."""
         kflops, kbytes = self.log.totals()
         hist = dict(sorted(self.hist.items(), key=lambda kv: -kv[1])[:top])
+        coll = {k: dict(v) for k, v in self.collectives.items()}
+        coll["total_bytes"] = sum(v["bytes"] for v in self.collectives.values())
+        coll["total_count"] = sum(v["count"] for v in self.collectives.values())
         return {"dot_flops": self.aten_dot_flops + kflops,
                 "traffic_bytes": self.aten_traffic_bytes + kbytes,
-                "collective_bytes": 0.0,
+                "collective_bytes": float(coll["total_bytes"]),
+                "collectives": coll,
                 "n_ops": self.n_ops,
                 "op_histogram": hist,
                 "aten_dot_flops": self.aten_dot_flops,

@@ -43,3 +43,18 @@ def batch_specs(cfg: ModelConfig, shape: InputShape) -> dict:
 
 def decode_token_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     return {"tokens": ((shape.global_batch, 1), torch.int32)}
+
+
+#: logical axes of every array a step's batch may carry
+INPUT_LOGICAL = {"tokens": ("batch", "seq"), "mask": ("batch", "seq"),
+                 "targets": ("batch", "seq"),
+                 "embeds": ("batch", "seq", "act_embed")}
+
+
+def batch_logical(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Logical axes of ``batch_specs``'s arrays (``sharding.rules``)."""
+    return {k: INPUT_LOGICAL[k] for k in batch_specs(cfg, shape)}
+
+
+def decode_token_logical(cfg: ModelConfig) -> dict:
+    return {"tokens": INPUT_LOGICAL["tokens"]}

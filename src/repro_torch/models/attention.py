@@ -26,7 +26,10 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import NEG_INF, flash_attention
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import apply_mrope, apply_rope, trunc_normal
+from repro_torch.models.layers import (apply_mrope, apply_rope, head_proj,
+                                       trunc_normal)
+from repro_torch.sharding import local
+from repro_torch.sharding.context import is_dtensor, shard_act
 
 
 def init_attention(gen, cfg: ModelConfig, dtype=torch.float32):
@@ -44,10 +47,40 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32):
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
 
 
+def attention_logical(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_attention``'s leaves."""
+    out = {"wq": ("embed", "heads", "head_dim"),
+           "wk": ("embed", "kv_heads", "head_dim"),
+           "wv": ("embed", "kv_heads", "head_dim"),
+           "wo": ("heads", "head_dim", "embed")}
+    if cfg.attn.qkv_bias:
+        out.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                   bv=("kv_heads", "head_dim"))
+    return out
+
+
+KV_CACHE_LOGICAL = {"k": ("batch", "cache", "kv_heads", "head_dim"),
+                    "v": ("batch", "cache", "kv_heads", "head_dim")}
+
+
+def _out_proj(out, wo):
+    """out (B, S, H, hd) by wo (H, hd, d) -> (B, S, d); on a mesh with
+    both flattened (H * hd) dims pinned by their heads, as in
+    ``layers.head_proj`` (the gradient of ``out`` unflattens)."""
+    if not local.any_sharded(out, wo):
+        return torch.einsum("...hk,hkd->...d", out, wo)
+    H = wo.shape[0]
+    of = shard_act(out.flatten(-2), ("batch", "seq", "heads"),
+                   dim_sizes=(*out.shape[:-2], H))
+    wf = shard_act(wo.flatten(0, 1), ("heads", "embed"),
+                   dim_sizes=(H, wo.shape[-1]))
+    return of @ wf
+
+
 def _project_qkv(p, x, cfg: ModelConfig, positions):
-    q = torch.einsum("...d,dhk->...hk", x, p["wq"])
-    k = torch.einsum("...d,dhk->...hk", x, p["wk"])
-    v = torch.einsum("...d,dhk->...hk", x, p["wv"])
+    q = head_proj(x, p["wq"], "heads")
+    k = head_proj(x, p["wk"], "kv_heads")
+    v = head_proj(x, p["wv"], "kv_heads")
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     a = cfg.attn
@@ -57,18 +90,28 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     elif a.rope_theta > 0:
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
+    q = shard_act(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_act(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard_act(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
 def attend_full(p, x, cfg: ModelConfig, positions, window: int = 0):
     """Full-sequence attention over x (B, S, d).  Returns ((B, S, d),
     (k, v)): the keys and values (B, S, KV, hd), after RoPE, that a
-    prefill keeps as its cache."""
+    prefill keeps as its cache.  On a mesh each device runs the kernel
+    on its shards (``sharding.local.attention_on_shards``)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     a = cfg.attn
-    out = flash_attention(q, k, v, causal=a.causal, window=window,
-                          softcap=a.softcap)
-    return torch.einsum("...hk,hkd->...d", out, p["wo"]), (k, v)
+
+    def attend(q, k, v):
+        return flash_attention(q, k, v, causal=a.causal, window=window,
+                               softcap=a.softcap)
+
+    out = (local.attention_on_shards(attend, q, k, v) if is_dtensor(q)
+           else attend(q, k, v))
+    out = shard_act(out, ("batch", "seq", "heads", "head_dim"))
+    return _out_proj(out, p["wo"]), (k, v)
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: ModelConfig, dtype,
@@ -87,7 +130,8 @@ def prefill_cache_from_kv(k, v, window: int, dtype, capacity=None) -> dict:
     all S, as the reference does.  A window layer keeps the ring of
     ``window`` slots with slot == absolute position % window:
     zero-padded when S < window, else the last ``window`` positions
-    rolled by S % window."""
+    rolled by S % window.  On a mesh each device lays out its own block
+    of the batch and heads (``sharding.local.along_seq``)."""
     S = k.shape[1]
     if window <= 0:
         cap = max(capacity or S, S)
@@ -95,11 +139,17 @@ def prefill_cache_from_kv(k, v, window: int, dtype, capacity=None) -> dict:
         cap = window
     else:
         shift = S % window
-        return {"k": torch.roll(k[:, -window:], shift, 1).to(dtype),
-                "v": torch.roll(v[:, -window:], shift, 1).to(dtype)}
+
+        def ring(t):
+            return torch.roll(t[:, -window:], shift, 1).to(dtype)
+
+        return {"k": local.along_seq(ring, k), "v": local.along_seq(ring, v)}
     pad = (0, 0, 0, 0, 0, cap - S)
-    return {"k": nn.functional.pad(k, pad).to(dtype),
-            "v": nn.functional.pad(v, pad).to(dtype)}
+
+    def padded(t):
+        return nn.functional.pad(t, pad).to(dtype)
+
+    return {"k": local.along_seq(padded, k), "v": local.along_seq(padded, v)}
 
 
 def _repeat_kv(k, v, H: int):
@@ -118,10 +168,29 @@ def attend_decode(p, x, cache: dict, index: int, cfg: ModelConfig,
     q, k1, v1 = _project_qkv(p, x, cfg, positions)
     T = cache["k"].shape[1]
     w = index % T
-    k, v = (torch.cat([c[:, :w], new.to(c.dtype), c[:, w + 1:]], 1)
+    # a select, not a cat of slices: on a mesh the slot dim may be
+    # sharded, and DTensor's slices of a sharded dim are not safe
+    at = (torch.arange(T, device=x.device) == w)[None, :, None, None]
+    k, v = (torch.where(at, new.to(c.dtype), c)
             for c, new in ((cache["k"], k1), (cache["v"], v1)))
-    kr, vr = _repeat_kv(k, v, cfg.num_heads)
-    kj = torch.arange(T, device=x.device)
+
+    def attend(q, k, v):
+        return _decode_attention(q, k, v, index, window, cfg.attn.softcap)
+
+    out = (local.attention_on_shards(attend, q, k, v) if is_dtensor(q)
+           else attend(q, k, v))
+    out = shard_act(out, ("batch", "seq", "heads", "head_dim"))
+    return _out_proj(out, p["wo"]), {"k": k, "v": v}
+
+
+def _decode_attention(q, k, v, index: int, window: int, softcap: float):
+    """The attention of ``attend_decode`` over the whole cache k/v
+    (B, T, KV, hd), in the reference's casts.  On a mesh each device
+    runs it on its shards (``sharding.local.attention_on_shards``), as
+    the full-sequence kernel does."""
+    T = k.shape[1]
+    kr, vr = _repeat_kv(k, v, q.shape[2])
+    kj = torch.arange(T, device=q.device)
     ok = (kj <= index) | (index >= T)
     if 0 < window < T:
         ok &= kj > index - window
@@ -129,13 +198,12 @@ def attend_decode(p, x, cache: dict, index: int, cfg: ModelConfig,
     scale = 1.0 / math.sqrt(q.shape[-1])
     # the reference's casts: the product in the activations' type, then
     # f32 for the scale, softcap and softmax, and back to v's type
-    s = torch.einsum("bshd,bthd->bhst", q, kr).float() * scale
-    softcap = cfg.attn.softcap
+    s = torch.einsum("bshd,bthd->bhst", q, kr).float()
+    s = shard_act(s, ("batch", "heads", "seq", "seq")) * scale
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     probs = torch.softmax(s + bias, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs.to(vr.dtype), vr)
-    return torch.einsum("...hk,hkd->...d", out, p["wo"]), {"k": k, "v": v}
+    return torch.einsum("bhst,bthd->bshd", probs.to(vr.dtype), vr)
 
 
 def layer_window(cfg: ModelConfig, layer_idx: int) -> int:

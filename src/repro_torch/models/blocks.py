@@ -14,8 +14,10 @@ from torch import nn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
-from repro_torch.models.moe import init_moe
+from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm, mlp_logical, norm_logical)
+from repro_torch.models.moe import init_moe, moe_logical
+from repro_torch.sharding.context import shard_act
 
 KINDS = ("attn", "mamba", "mlstm", "slstm")
 MODES = ("train", "encode", "prefill", "decode")
@@ -55,6 +57,26 @@ class Block(nn.ModuleDict):
                            mode=mode, layer_idx=self.layer_idx,
                            positions=positions, state=state, index=index,
                            cache_capacity=cache_capacity)
+
+
+def block_logical(cfg: ModelConfig, kind: str, use_moe: bool = False) -> dict:
+    """Logical axes of a ``Block``'s leaves, keyed as its parameters."""
+    mix = (attn_lib.attention_logical(cfg) if kind == "attn" else
+           {"mamba": ssm_lib.MAMBA_LOGICAL, "mlstm": ssm_lib.MLSTM_LOGICAL,
+            "slstm": ssm_lib.SLSTM_LOGICAL}[kind])
+    out = {"norm1": norm_logical(cfg.norm_kind), "mix": dict(mix)}
+    if cfg.d_ff > 0:
+        out["norm2"] = norm_logical(cfg.norm_kind)
+        out["mlp"] = moe_logical(cfg) if use_moe else mlp_logical(cfg.act)
+    return out
+
+
+def block_state_logical(kind: str) -> dict:
+    """Logical axes of ``init_block_state``'s leaves."""
+    return dict({"attn": attn_lib.KV_CACHE_LOGICAL,
+                 "mamba": ssm_lib.MAMBA_STATE_LOGICAL,
+                 "mlstm": ssm_lib.MLSTM_STATE_LOGICAL,
+                 "slstm": ssm_lib.SLSTM_STATE_LOGICAL}[kind])
 
 
 def init_block_state(cfg: ModelConfig, kind: str, batch: int,
@@ -122,7 +144,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, use_moe: bool = False, *,
                         else ssm_lib.slstm_full(p["mix"], h, cfg))
     else:
         raise ValueError(kind)
-    x = x + y.to(x.dtype)
+    x = shard_act(x + y.to(x.dtype), ("batch", "seq", "act_embed"))
     aux = 0.0
     if "mlp" in p:
         h2 = apply_norm(p["norm2"], x, cfg.norm_eps, cfg.norm_kind)
@@ -130,7 +152,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, use_moe: bool = False, *,
             y2, aux = p["mlp"](h2)
         else:
             y2 = apply_mlp(p["mlp"], h2, cfg.act)
-        x = x + y2.to(x.dtype)
+        x = shard_act(x + y2.to(x.dtype), ("batch", "seq", "act_embed"))
     if mode in ("train", "encode"):
         new_state = None
     return x, new_state, aux

@@ -16,6 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import local
+from repro_torch.sharding.context import is_dtensor, shard_act
+
 
 def trunc_normal(shape, scale: float, gen: torch.Generator,
                  dtype=torch.float32) -> torch.Tensor:
@@ -37,6 +40,12 @@ def init_norm(d: int, kind: str = "rmsnorm") -> nn.ParameterDict:
     if kind == "layernorm":
         p["bias"] = torch.zeros(d)
     return _params(**p)
+
+
+def norm_logical(kind: str = "rmsnorm") -> dict:
+    """Logical axes of ``init_norm``'s leaves (``sharding.rules``)."""
+    return {k: ("norm",) for k in
+            (("scale", "bias") if kind == "layernorm" else ("scale",))}
 
 
 def apply_norm(p, x, eps: float = 1e-6, kind: str = "rmsnorm"):
@@ -62,6 +71,13 @@ def init_dense(gen, d_in: int, d_out: int, dtype=torch.float32,
     return _params(**p)
 
 
+def dense_logical(axes=("embed", "mlp"), bias: bool = False) -> dict:
+    out = {"w": tuple(axes)}
+    if bias:
+        out["b"] = (axes[-1],)
+    return out
+
+
 def apply_dense(p, x):
     y = x @ p["w"]
     if "b" in p:
@@ -77,7 +93,12 @@ def init_embedding(gen, vocab: int, d: int, dtype=torch.float32):
                                       dtype))
 
 
+EMBEDDING_LOGICAL = {"table": ("vocab", "embed")}
+
+
 def apply_embedding(p, ids):
+    if is_dtensor(ids):
+        return local.embedding_on_shards(p["table"], ids)
     return p["table"][ids.long()]
 
 
@@ -137,6 +158,30 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.float32,
     if act == "silu":  # swiglu
         return _params(wi=wi, wg=wg, wo=wo)
     return _params(wi=wi, wo=wo)
+
+
+def mlp_logical(act: str = "silu") -> dict:
+    out = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+           "wo": ("mlp", "embed")}
+    if act != "silu":
+        del out["wg"]
+    return out
+
+
+def head_proj(x, w, heads: str):
+    """x (B, S, d) by w (d, h, k) -> (B, S, h, k).  On a mesh as one
+    product with w flattened to (d, h * k) into (B, S, h * k), both
+    flattened dims pinned by their heads (logical axis ``heads``), then
+    unflattened: DTensor may shard a flattened dim that its heads do
+    not divide, and then cannot unflatten it, in the forward or in the
+    weight's gradient (4 kv heads of 64 on a 16-way axis).  Where
+    nothing is sharded (a (1, 1) mesh) the meshless product runs."""
+    if not local.any_sharded(x, w):
+        return torch.einsum("...d,dhk->...hk", x, w)
+    wf = shard_act(w.flatten(1), ("embed", heads), dim_sizes=w.shape[:2])
+    y = shard_act(x @ wf, ("batch", "seq", heads),
+                  dim_sizes=(*x.shape[:-1], w.shape[1]))
+    return y.unflatten(-1, w.shape[1:])
 
 
 def apply_mlp(p, x, act: str = "silu"):

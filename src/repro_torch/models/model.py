@@ -19,7 +19,9 @@ it): the full units run in groups of ``unit_group`` units (1 unless the
 number of full units divides by it), each group under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
 groups' boundaries are kept for the backward and each group's forward
-runs again inside it; the remainder layers run outside any checkpoint.
+runs again inside it (on a mesh under the forward's activation
+sharding, ``sharding.context.recompute_context``); the remainder layers
+run outside any checkpoint.
 The MoE load-balance term leaves each group with the hidden state.
 Remat changes no number; a remat'd layer's forward kernels run twice a
 training step.
@@ -34,11 +36,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import MODES, Block, init_block_state
+from repro_torch.models.blocks import (MODES, Block, block_logical,
+                                       block_state_logical, init_block_state)
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import (apply_dense, apply_embedding,
-                                       apply_norm, apply_unembed, init_dense,
-                                       init_embedding, init_norm)
+from repro_torch.models.layers import (EMBEDDING_LOGICAL, apply_dense,
+                                       apply_embedding, apply_norm,
+                                       apply_unembed, dense_logical,
+                                       init_dense, init_embedding, init_norm,
+                                       norm_logical)
+from repro_torch.sharding.context import recompute_context, shard_act
 
 
 class Model(nn.Module):
@@ -47,10 +53,9 @@ class Model(nn.Module):
         self.cfg = cfg
         dtype = cfg.torch_dtype
         self.embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
-        pat, moes = cfg.layer_pattern, cfg.moe_pattern
         self.layers = nn.ModuleList(
-            Block(gen, cfg, pat[i % len(pat)], i, moes[i % len(moes)])
-            for i in range(cfg.num_layers))
+            Block(gen, cfg, kind, i, use_moe)
+            for i, (kind, use_moe) in enumerate(_layer_kinds(cfg)))
         self.final_norm = init_norm(cfg.d_model, cfg.norm_kind)
         if not cfg.tie_embeddings:
             self.head = init_dense(gen, cfg.d_model, cfg.vocab_size, dtype)
@@ -71,7 +76,8 @@ class Model(nn.Module):
         if mode == "decode" and state is None:
             raise ValueError("decode needs the state of a prefill")
         cfg = self.cfg
-        x = self._embed_in(tokens, embeds)
+        x = shard_act(self._embed_in(tokens, embeds),
+                      ("batch", "seq", "act_embed"))
         B, S = x.shape[0], x.shape[1]
         offset = index if mode == "decode" else 0
         positions = (torch.arange(S, device=x.device)[None, :]
@@ -87,7 +93,8 @@ class Model(nn.Module):
             g = unit_group if (unit_group > 1 and U % unit_group == 0) else 1
             for first in range(0, U * unit, g * unit):
                 x, a = checkpoint(self._group, x, positions, mode, first,
-                                  first + g * unit, use_reentrant=False)
+                                  first + g * unit, use_reentrant=False,
+                                  context_fn=recompute_context)
                 aux = aux + a if with_aux else None
             first = U * unit
         for i, block in enumerate(self.layers[first:], first):
@@ -104,6 +111,7 @@ class Model(nn.Module):
             logits = apply_unembed(self.embed, x)
         else:
             logits = apply_dense(self.head, x)
+        logits = shard_act(logits, ("batch", "seq", "vocab"))
         if mode in ("prefill", "decode"):
             return logits, states
         return (logits, aux) if with_aux else logits
@@ -159,6 +167,52 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int = 0,
             for i in range(cfg.num_layers)]
 
 
+def init_model_logical(cfg: ModelConfig):
+    """(abstract parameters, logical axes): the model's parameters on
+    ``meta`` (shapes and types, nothing allocated) and the logical axes
+    of each, both keyed by ``state_dict()`` name.  Each tuple is the
+    reference's leaf's less its stacked ``"layers"`` axis."""
+    logical = model_logical(cfg)
+    abstract = dict(init_model(cfg, device="meta").named_parameters())
+    if set(abstract) != set(logical):
+        raise AssertionError(
+            f"{cfg.name}: logical axes do not cover the parameters: "
+            f"{sorted(set(abstract) ^ set(logical))[:8]}")
+    return abstract, logical
+
+
+def model_logical(cfg: ModelConfig) -> dict:
+    """``state_dict()`` name -> logical axes of every parameter."""
+    tree = {"embed": EMBEDDING_LOGICAL,
+            "layers": {str(i): block_logical(cfg, kind, use_moe)
+                       for i, (kind, use_moe) in enumerate(_layer_kinds(cfg))},
+            "final_norm": norm_logical(cfg.norm_kind)}
+    if not cfg.tie_embeddings:
+        tree["head"] = dense_logical(("embed", "vocab"))
+    return dict(_flatten(tree))
+
+
+def decode_state_logical(cfg: ModelConfig) -> list:
+    """Logical axes of ``init_decode_state``'s per-layer states."""
+    return [block_state_logical(kind) for kind, _ in _layer_kinds(cfg)]
+
+
+def _layer_kinds(cfg: ModelConfig):
+    """(kind, MoE or not) of each layer, as ``layer_pattern`` and
+    ``moe_pattern`` repeat."""
+    pat, moes = cfg.layer_pattern, cfg.moe_pattern
+    return [(pat[i % len(pat)], moes[i % len(moes)])
+            for i in range(cfg.num_layers)]
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def forward(model: Model, batch, *, mode: str = "train"):
     """Logits (B, S, V) in ``train`` mode, hidden states (B, S, d) in
     ``encode`` mode, for ``batch["tokens"]`` (B, S) or
@@ -175,8 +229,10 @@ def encode(model: Model, batch):
 
 def cross_entropy(logits, targets, mask):
     """Masked mean CE in f32. logits (B,S,V); targets (B,S); mask (B,S).
-    The mean is over ``max(sum(mask), 1)`` as in the reference."""
-    logits = logits.float()
+    The mean is over ``max(sum(mask), 1)`` as in the reference.  On a
+    mesh each device gathers its rows' whole vocabulary first: the gold
+    logit is a gather along the vocabulary."""
+    logits = shard_act(logits.float(), ("batch", "seq", None))
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     mask = mask.float()

@@ -30,6 +30,7 @@ recurrence is a ``lax.scan`` there and a Python loop over time here.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -39,8 +40,11 @@ from torch import nn
 from repro_torch.kernels.mlstm_scan.ops import (log_sigmoid, mlstm_chunkwise,
                                                 mlstm_sequential)
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import trunc_normal
+from repro_torch.models.layers import head_proj, trunc_normal
 from repro_torch.models.scan_utils import pick_chunk
+from repro_torch.sharding import local
+from repro_torch.sharding.context import (distribute, is_dtensor, shard_act,
+                                          shard_zeros)
 
 
 def _params(**tensors) -> nn.ParameterDict:
@@ -74,6 +78,15 @@ def init_mamba(gen, cfg: ModelConfig, dtype=torch.float32):
                         ).expand(di, ds).contiguous(),
         D=torch.ones(di),
         out_proj=trunc_normal((di, d), 1 / math.sqrt(di), gen, dtype))
+
+
+MAMBA_LOGICAL = {"in_proj": ("embed", "inner"), "conv_w": ("conv", "inner"),
+                 "conv_b": ("inner",), "x_proj": ("inner", "state"),
+                 "dt_w": ("state", "inner"), "dt_b": ("inner",),
+                 "A_log": ("inner", "state"), "D": ("inner",),
+                 "out_proj": ("inner", "embed")}
+MAMBA_STATE_LOGICAL = {"h": ("batch", "inner", "state"),
+                       "conv": ("batch", "conv", "inner")}
 
 
 def init_mamba_state(batch: int, cfg: ModelConfig, dtype=torch.float32,
@@ -110,13 +123,17 @@ def _mamba_inner(p, xs_conv, dt, Bm, Cm, h0):
 
 
 def _mamba_preproj(p, x):
-    return (x @ p["in_proj"]).chunk(2, dim=-1)                # xs, z
+    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    return (shard_act(xs, ("batch", "seq", "inner")),
+            shard_act(z, ("batch", "seq", "inner")))
 
 
 def _mamba_postconv(p, xc, cfg):
     """xc: conv output (B, T, di).  Returns dt, Bm, Cm (f32)."""
     _, ds, _, dtr = _mamba_dims(cfg)
-    dbc = (xc @ p["x_proj"]).float()
+    # on a mesh the sums over the inner dim are reduced here, before the
+    # dt projection re-shards it
+    dbc = shard_act((xc @ p["x_proj"]).float(), ("batch", "seq", None))
     dt_in, Bm, Cm = dbc.split([dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_in @ p["dt_w"].float() + p["dt_b"])
     return dt, Bm, Cm
@@ -193,6 +210,18 @@ def init_mlstm(gen, cfg: ModelConfig, dtype=torch.float32):
         out_proj=trunc_normal((di, d), si, gen, dtype))
 
 
+MLSTM_LOGICAL = {"in_proj": ("embed", "inner"),
+                 "wq": ("inner", "heads", "head_dim"),
+                 "wk": ("inner", "heads", "head_dim"),
+                 "wv": ("inner", "heads", "head_dim"),
+                 "w_if": ("inner", "heads"), "b_if": ("heads",),
+                 "out_norm": ("heads", "head_dim"),
+                 "out_proj": ("inner", "embed")}
+MLSTM_STATE_LOGICAL = {"C": ("batch", "heads", "head_dim", "head_dim"),
+                       "n": ("batch", "heads", "head_dim"),
+                       "m": ("batch", "heads")}
+
+
 def init_mlstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
     di, H, dh = _mlstm_dims(cfg)
     z = lambda *s: torch.zeros(*s, device=device)
@@ -202,9 +231,7 @@ def init_mlstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
 def _mlstm_gates_qkv(p, x, cfg):
     u = x @ p["in_proj"]
     main, og = u.chunk(2, dim=-1)
-    q = torch.einsum("bti,ihk->bthk", main, p["wq"])
-    k = torch.einsum("bti,ihk->bthk", main, p["wk"])
-    v = torch.einsum("bti,ihk->bthk", main, p["wv"])
+    q, k, v = (head_proj(main, p[w], "heads") for w in ("wq", "wk", "wv"))
     gif = main.float() @ p["w_if"] + p["b_if"]
     i_pre, f_pre = gif.chunk(2, dim=-1)                       # (B,T,H)
     return q, k, v, i_pre, f_pre, og
@@ -212,8 +239,12 @@ def _mlstm_gates_qkv(p, x, cfg):
 
 def _mlstm_out(p, h, og, x, cfg):
     B, T = h.shape[:2]
-    di = _mlstm_dims(cfg)[0]
-    h = (h * p["out_norm"]).reshape(B, T, di).to(x.dtype) * F.silu(og)
+    di, H, _ = _mlstm_dims(cfg)
+    # on a mesh the merged (heads x head_dim) dim is pinned by its heads,
+    # so that its gradient unflattens
+    h = shard_act((h * p["out_norm"]).reshape(B, T, di),
+                  ("batch", "seq", "heads"), dim_sizes=(B, T, H))
+    h = h.to(x.dtype) * F.silu(og)
     return h @ p["out_proj"]
 
 
@@ -221,13 +252,24 @@ def mlstm_full(p, x, cfg: ModelConfig, state=None):
     """x (B, T, d) -> (y (B, T, d), state); the recurrence through the
     ``mlstm_scan`` kernel wrapper, chunk ``pick_chunk(T, 64)``; without a
     ``state`` it starts from zeros and says so to the backward, which
-    then skips the products that read the initial state."""
+    then skips the products that read the initial state.  On a mesh
+    each device runs the wrapper on its own (batch, head) blocks
+    (``sharding.local.scan_on_shards``)."""
     zero_state = state is None
     if zero_state:
-        state = init_mlstm_state(x.shape[0], cfg, x.device)
+        di, H, dh = _mlstm_dims(cfg)
+        B = x.shape[0]
+        shapes = {"C": (B, H, dh, dh), "n": (B, H, dh), "m": (B, H)}
+        # on a mesh each device allocates its own shard alone
+        state = {k: shard_zeros(s, MLSTM_STATE_LOGICAL[k], device=x.device)
+                 for k, s in shapes.items()}
     q, k, v, i_pre, f_pre, og = _mlstm_gates_qkv(p, x, cfg)
-    h, state = mlstm_chunkwise(q.float(), k.float(), v.float(), i_pre, f_pre,
-                               state, zero_state=zero_state)
+    args = (q.float(), k.float(), v.float(), i_pre, f_pre, state)
+    if is_dtensor(q):
+        h, state = local.scan_on_shards(functools.partial(
+            mlstm_chunkwise, zero_state=zero_state), *args)
+    else:
+        h, state = mlstm_chunkwise(*args, zero_state=zero_state)
     return _mlstm_out(p, h, og, x, cfg), state
 
 
@@ -258,6 +300,12 @@ def init_slstm(gen, cfg: ModelConfig, dtype=torch.float32):
         out_proj=trunc_normal((d, d), 1 / math.sqrt(d), gen, dtype))
 
 
+SLSTM_LOGICAL = {"w_x": ("embed", "inner"),
+                 "r_h": ("conv", "heads", "head_dim", "head_dim"),
+                 "b": ("inner",), "out_proj": ("embed", "embed")}
+SLSTM_STATE_LOGICAL = {k: ("batch", "inner") for k in ("h", "c", "n", "m")}
+
+
 def init_slstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
     d = cfg.d_model
     z = torch.zeros(batch, d, device=device)
@@ -267,7 +315,11 @@ def init_slstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
 
 def _slstm_cell_seq(p, wx, st, cfg):
     """wx: (B, T, 4d) input projections.  Returns (hs (B, T, d) f32,
-    state)."""
+    state).  On a mesh the loop runs on each device's block of the
+    batch (``_sharded_slstm``): DTensor would dispatch every step's ops
+    through its sharding propagation."""
+    if is_dtensor(wx):
+        return _sharded_slstm(p, wx, st, cfg)
     H, dh = _slstm_dims(cfg)
     B, T, _ = wx.shape
     d = H * dh
@@ -290,6 +342,37 @@ def _slstm_cell_seq(p, wx, st, cfg):
         m = m_new
         hs.append(h)
     return torch.stack(hs, dim=1), {"h": h, "c": c, "n": n, "m": m}
+
+
+def _sharded_slstm(p, wx, st, cfg):
+    """``_slstm_cell_seq`` per device on its batch block (each row's
+    recurrence is independent); the recurrent weights and bias are
+    gathered, their gradients partial sums over the batch's blocks."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = wx.device_mesh
+    bw = local.keep_shards(wx, (0,))
+    rep = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if q.is_shard() else Replicate() for q in bw)
+    keys = ("h", "c", "n", "m")
+    args = ([local.laid_out(wx, bw)]
+            + [local.laid_out(p[k], rep) for k in ("r_h", "b")]
+            # a fresh state is plain: each rank keeps its block
+            + [local.laid_out(st[k], bw) if is_dtensor(st[k])
+               else distribute(st[k], mesh, bw) for k in keys])
+
+    def run(wl, rl, bl, *state):
+        hs, out = _slstm_cell_seq({"r_h": rl, "b": bl}, wl,
+                                  dict(zip(keys, state)), cfg)
+        return (hs, *(out[k] for k in keys))
+
+    hs, *state = local_map(
+        run, out_placements=(bw,) * 5,
+        in_placements=(bw, rep, rep) + (bw,) * 4,
+        in_grad_placements=(bw, part, part) + (bw,) * 4,
+        device_mesh=mesh)(*args)
+    return hs, dict(zip(keys, state))
 
 
 def slstm_full(p, x, cfg: ModelConfig, state=None):

@@ -12,6 +12,13 @@ the parameter's type.
 Unlike the JAX function, ``adamw_update`` writes the new parameters and
 moments in place (a full copy of the weights a step would cost memory
 for nothing); it returns the module and the new ``OptState``.
+
+On DTensor parameters (a sharded step, ``launch.steps.shard_model``)
+each gradient is first laid out as its parameter, the moments must be
+laid out so too (``launch.steps.shard_opt_state``; ``adamw_init`` of a
+sharded module makes them so), and the clip's global norm sums every
+leaf's squares over all its shards before the square root, so each
+device scales by the same norm the meshless step reads.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Callable
 import torch
 from torch import nn
 
+from repro_torch.sharding.context import is_dtensor, replicating
+
 
 @dataclasses.dataclass
 class OptState:
@@ -32,7 +41,7 @@ class OptState:
 
 
 def adamw_init(params: nn.Module) -> OptState:
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.named_parameters()}
     return OptState(step=0, mu=zeros,
                     nu={n: z.clone() for n, z in zeros.items()})
@@ -48,21 +57,37 @@ def adamw_update(params: nn.Module, grads: dict, state: OptState, *, lr,
     step = state.step + 1
     lr_t = float(lr(step)) if callable(lr) else lr
     named = list(params.named_parameters())
-    gs = [grads[n] for n, _ in named]
-    if grad_clip and grad_clip > 0:
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs))
-        scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-9), max=1.0)
-        gs = [g * scale.to(g.dtype) for g in gs]
-    c1, c2 = 1 - b1 ** step, 1 - b2 ** step
-    for (n, p), g in zip(named, gs):
-        g32 = g.float()
-        m, v = state.mu[n], state.nu[n]
-        m.mul_(b1).add_(g32, alpha=1 - b1)
-        v.mul_(b2).add_(g32.square(), alpha=1 - b2)
-        p32 = p.float()
-        delta = (m / c1) / ((v / c2).sqrt() + eps) + weight_decay * p32
-        p.copy_((p32 - lr_t * delta).to(p.dtype))
+    sharded = any(is_dtensor(p) for _, p in named)
+    gs = [_laid_as(grads[n], p) for n, p in named]
+    with replicating(sharded):
+        if grad_clip and grad_clip > 0:
+            gnorm = torch.sqrt(sum(_whole(g.float().square().sum())
+                                   for g in gs))
+            scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-9), max=1.0)
+            gs = [g * scale.to(g.dtype) for g in gs]
+        c1, c2 = 1 - b1 ** step, 1 - b2 ** step
+        for (n, p), g in zip(named, gs):
+            g32 = g.float()
+            m, v = state.mu[n], state.nu[n]
+            m.mul_(b1).add_(g32, alpha=1 - b1)
+            v.mul_(b2).add_(g32.square(), alpha=1 - b2)
+            p32 = p.float()
+            delta = (m / c1) / ((v / c2).sqrt() + eps) + weight_decay * p32
+            p.copy_((p32 - lr_t * delta).to(p.dtype))
     return params, OptState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _laid_as(g, p):
+    """Gradient ``g`` laid out as its DTensor parameter ``p`` (partial
+    sums reduced), or ``g`` itself off a mesh."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _whole(t):
+    """A DTensor's value over all its shards as a plain tensor."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def grads_of(params: nn.Module) -> dict:

@@ -27,7 +27,8 @@
   reduced configs at a small shape of each kind); on meta the parameter
   bytes equal ``count_params`` x the parameters' type size, and at full
   width the reference's abstract parameter bytes; the CLI writes one
-  record without a card and refuses ``--mesh``.
+  record without a card and refuses an unknown ``--mesh`` (the pod
+  meshes: ``tests/test_torch_dryrun_mesh.py``).
 """
 
 import dataclasses
@@ -317,9 +318,9 @@ def test_cli_writes_one_record_without_a_card(tmp_path, monkeypatch,
         cfg.num_layers
     assert "[OK  ] tinyllama-1.1b" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        dryrun.main(["--mesh", "pod"])
+        dryrun.main(["--mesh", "ring"])
     err = capsys.readouterr().err
-    assert "sharded dry run" in err and "item 16" in err
+    assert "invalid choice" in err and "multipod" in err
 
 
 def test_meta_build_allocates_nothing():
