@@ -73,7 +73,9 @@ just before it and read just after:
   one-launch and two-launch paths (128 keys), hd 128 and a long causal
   window, and the zoo's training shapes in f32 and bf16 (tinyllama,
   gemma3's local and global layers at hd 256 and 2,048 tokens,
-  qwen2-moe), and a bit-identical rerun;
+  qwen2-moe, qwen1.5, hubert's hd 80 without the causal mask,
+  starcoder2's 48:4 past its 4,096-token window, qwen2-vl's 64:8,
+  grok's 48:8 with softcap 30, jamba's 32:8), and a bit-identical rerun;
 * ``mlstm_grad``: the mLSTM backward kernel against torch autograd of
   the chunkwise plain version at xlstm-1.3b's training shape (2 x 512,
   dh 1024), the reduced config's and with a carried state (one chunk
@@ -83,18 +85,23 @@ just before it and read just after:
   kernel launches a call are counted right after the build, while the
   profiler's trace is whole: ``mlstm_bwd_launches``);
 * ``zoo_train``: ``train_step`` in bf16 with remat at full width, 5
-  AdamW steps on one fixed batch each: tinyllama-1.1b (22 layers, 4 x
-  512), gemma3-4b (34 layers, 1 x 2048), xlstm-1.3b (16 of its 48
-  layers, 2 x 512: the sLSTM's loop sets the step's time) and
-  qwen2-moe-a2.7b (4 of its 24 layers: 24 would need about 230
-  GB), each loss must fall, each step must launch each backward kernel
-  once per such layer, and no plain version may run; ms a step,
-  tokens/s, peak memory, a profiled step's busy share, top kernels and
-  the backward kernels' shares;
+  AdamW steps on one fixed batch each, for nine configs: tinyllama-1.1b
+  (22 layers, 4 x 512), gemma3-4b (34 layers, 1 x 2048), xlstm-1.3b
+  (16 of its 48 layers, 2 x 512: the sLSTM's loop sets the step's
+  time), qwen2-moe-a2.7b (4 of its 24 layers: 24 would need
+  172 GB), qwen1.5-0.5b (24 layers, 4 x 512), hubert-xlarge (48 layers,
+  4 x 512, embeddings and MLM targets as the training CLI draws them),
+  starcoder2-15b (12 of 40 layers, 1 x 4608, past its window),
+  qwen2-vl-72b (4 of 80 layers, 1 x 2048, embeddings in) and
+  grok-1-314b (1 of 64 layers, 1 x 1024); each loss must fall, each
+  step must launch each backward kernel once per such layer, no plain
+  version may run, and the peak must stay under the card's memory; ms
+  a step, tokens/s, peak memory, a profiled step's busy share, top
+  kernels and the backward kernels' shares;
 * ``zoo_train_crosscheck``: one f32 training step's loss and gradients
   at full width and reduced depth, card vs a CPU copy of the same
-  weights (tinyllama and gemma3 2 layers, xlstm one 8-layer unit,
-  qwen2-moe 2 layers);
+  weights (tinyllama, gemma3, qwen2-moe, qwen1.5, hubert and starcoder2
+  2 layers, xlstm one 8-layer unit);
 * ``train_cli``: the training CLI's ``train_arch`` for all ten reduced
   configs on the card, 5 steps each, finite losses;
 * ``train_path``: the paper's experiment pipeline (``run_experiment``
@@ -246,13 +253,20 @@ ATTN_GRAD_CASES = [  # (B, S, T, H, KV, hd, causal, window, softcap)
     (1, 300, 140, 2, 2, 8, False, 3, 0.0),     # long T, rows with no key
 ]
 # the attention backward at the zoo's training shapes (zoo_train), in
-# bf16 and f32: (B, S, H, KV, hd, causal, window, label); bf16 is held
-# within one bf16 ulp of the plain f32 gradient rounded, plus
-# ATTN_GRAD_REL_TOL of the largest
-ZOO_ATTN_GRAD = [(4, 512, 32, 4, 64, True, 0, "tinyllama-1.1b"),
-                 (1, 2048, 8, 4, 256, True, 1024, "gemma3-4b local"),
-                 (1, 2048, 8, 4, 256, True, 0, "gemma3-4b global"),
-                 (4, 512, 16, 16, 128, True, 0, "qwen2-moe-a2.7b")]
+# bf16 and f32: (B, S, H, KV, hd, causal, window, softcap, label); bf16
+# is held within one bf16 ulp of the plain f32 gradient rounded, plus
+# ATTN_GRAD_REL_TOL of the largest.  starcoder2 runs past its window,
+# hubert without the causal mask, grok with its softcap
+ZOO_ATTN_GRAD = [(4, 512, 32, 4, 64, True, 0, 0.0, "tinyllama-1.1b"),
+                 (1, 2048, 8, 4, 256, True, 1024, 0.0, "gemma3-4b local"),
+                 (1, 2048, 8, 4, 256, True, 0, 0.0, "gemma3-4b global"),
+                 (4, 512, 16, 16, 128, True, 0, 0.0, "qwen2-moe-a2.7b"),
+                 (4, 512, 16, 16, 64, True, 0, 0.0, "qwen1.5-0.5b"),
+                 (4, 512, 16, 16, 80, False, 0, 0.0, "hubert-xlarge"),
+                 (1, 4608, 48, 4, 128, True, 4096, 0.0, "starcoder2-15b"),
+                 (1, 2048, 64, 8, 128, True, 0, 0.0, "qwen2-vl-72b"),
+                 (1, 1024, 48, 8, 128, True, 0, 30.0, "grok-1-314b"),
+                 (2, 2048, 32, 8, 128, True, 0, 0.0, "jamba-v0.1-52b")]
 # the mLSTM backward against autograd of the chunkwise plain version:
 # (B, S, H, dh, carried state); xlstm-1.3b's training shape, the reduced
 # config's (d 256: dh 256) and a carried state (the kernel takes one; no
@@ -263,23 +277,38 @@ MLSTM_GRAD_CASES = [(2, 512, 4, 1024, False), (2, 128, 2, 256, False),
                     (2, 96, 2, 32, True), (1, 2048, 2, 256, False),
                     (1, 1024, 2, 128, True)]
 MLSTM_GRAD_REL_TOL = 1e-4
-# zoo_train: (arch, fields cut, batch, seq), full width in bf16, remat on,
-# TRAIN_STEPS AdamW steps (lr ZOO_TRAIN_LR) on one fixed batch; qwen2-moe
-# is cut (24 layers would need about 230 GB: bf16 weights and gradients
-# and f32 moments), and xlstm to 2 of its 6 units (16 layers): a step's
-# time is its sLSTM layers' Python loop, 16 s at 48 layers on a slow
-# host, which the script's time limit cannot spare
-ZOO_TRAIN = [("tinyllama-1.1b", None, 4, 512),
-             ("gemma3-4b", None, 1, 2048),
-             ("xlstm-1.3b", {"num_layers": 16}, 2, 512),
-             ("qwen2-moe-a2.7b", {"num_layers": 4}, 4, 512)]
-TRAIN_STEPS = 5
-# the reference CLI's lr: bf16 weights of ~1/sqrt(d) move at it
+# zoo_train: (arch, fields cut, batch, seq, lr), full width in bf16, remat
+# on, TRAIN_STEPS AdamW steps on one fixed batch.  Depth is
+# cut where bf16 weights and gradients and f32 moments (12 bytes a
+# parameter) and the activations do not fit in 80 GB: qwen2-moe (24
+# layers: 172 GB), starcoder2 (40 layers: 4.91 B parameters at 12),
+# qwen2-vl (6.00 B at 4 of 80), grok-1 (5.73 B at 1 of 64).  xlstm runs
+# 2 of its 6 units (16 layers): a step's time is its sLSTM layers'
+# Python loop, 16 s at 48 layers on a slow host, which the script's time
+# limit cannot spare (at one unit its loss rose again by the fifth
+# step).  starcoder2 runs past its 4,096-token window.  lr: the
+# reference CLI's 1e-3 (bf16 weights of ~1/sqrt(d) move at it) for the
+# first four; the five configs added later swung at it on the card
+# (hubert 6.68 -> 5.16 -> 6.88 over 5 steps from one seed, qwen2-vl
+# 12.36 -> 0.0004 -> 31.7, starcoder2 8.96 -> 10.45), so they take 1e-4
 ZOO_TRAIN_LR = 1e-3
+ZOO_TRAIN = [("tinyllama-1.1b", None, 4, 512, ZOO_TRAIN_LR),
+             ("gemma3-4b", None, 1, 2048, ZOO_TRAIN_LR),
+             ("xlstm-1.3b", {"num_layers": 16}, 2, 512, ZOO_TRAIN_LR),
+             ("qwen2-moe-a2.7b", {"num_layers": 4}, 4, 512, ZOO_TRAIN_LR),
+             ("qwen1.5-0.5b", None, 4, 512, 1e-4),
+             ("hubert-xlarge", None, 4, 512, 1e-4),
+             ("starcoder2-15b", {"num_layers": 12}, 1, 4608, 1e-4),
+             ("qwen2-vl-72b", {"num_layers": 4}, 1, 2048, 1e-4),
+             ("grok-1-314b", {"num_layers": 1}, 1, 1024, 1e-4)]
+TRAIN_STEPS = 5
 # zoo_train_crosscheck, f32 at full width: (arch, layers, batch, seq);
-# xlstm keeps one 8-layer unit (7 mLSTM, 1 sLSTM)
+# xlstm keeps one 8-layer unit (7 mLSTM, 1 sLSTM); hubert takes the
+# embeddings and MLM targets of the reference CLI (launch.train)
 ZOO_TRAIN_CROSS = [("tinyllama-1.1b", 2, 2, 128), ("gemma3-4b", 2, 1, 128),
-                   ("xlstm-1.3b", 8, 1, 128), ("qwen2-moe-a2.7b", 2, 2, 128)]
+                   ("xlstm-1.3b", 8, 1, 128), ("qwen2-moe-a2.7b", 2, 2, 128),
+                   ("qwen1.5-0.5b", 2, 2, 128), ("hubert-xlarge", 2, 2, 128),
+                   ("starcoder2-15b", 2, 1, 128)]
 TRAIN_CROSS_LOSS_RTOL, TRAIN_CROSS_GRAD_REL = 1e-4, 1e-3
 # a leaf whose card-vs-CPU gap passes TRAIN_CROSS_GRAD_REL is held
 # instead to TRAIN_ROUNDING_FACTOR times its own one-ulp sensitivity (the
@@ -1604,6 +1633,17 @@ def zoo_tokens(torch, cfg, B, S, seed):
                          generator=g, dtype=torch.int32)
 
 
+def zoo_train_batch(torch, cfg, B, S, seed) -> dict:
+    """A training batch on the card as the training CLI makes it
+    (``launch.train.family_batch``) from ``zoo_tokens``: the decoders'
+    tokens, and for the encoder, vlm and audio families random-normal
+    embeddings with MLM targets and mask (numpy, seeded)."""
+    from repro_torch.launch.train import family_batch
+    toks = zoo_tokens(torch, cfg, B, S, seed).cpu().numpy()
+    return {k: torch.from_numpy(v).cuda() for k, v in family_batch(
+        cfg, toks, np.random.default_rng(seed)).items()}
+
+
 def zoo_inputs(torch, cfg, B, S, seed):
     """A prefill batch on the card: token ids, or for the modality stubs
     embeddings with the embedding table's scale (seeded)."""
@@ -2006,9 +2046,9 @@ def attention_grad_phase(torch) -> float:
     largest max abs error of the f32 cases."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     cases, worst = [], 0.0
-    zoo = [(B, S, S, H, KV, hd, causal, window, 0.0, dt, label)
-           for B, S, H, KV, hd, causal, window, label in ZOO_ATTN_GRAD
-           for dt in ("float32", "bfloat16")]
+    zoo = [(B, S, S, H, KV, hd, causal, window, softcap, dt, label)
+           for B, S, H, KV, hd, causal, window, softcap, label
+           in ZOO_ATTN_GRAD for dt in ("float32", "bfloat16")]
     for B, S, T, H, KV, hd, causal, window, softcap, dt, label in (
             [(*c, "float32", None) for c in ATTN_GRAD_CASES] + zoo):
         q, k, v, do = (x.to(getattr(torch, dt)) for x in attn_grad_inputs(
@@ -2120,7 +2160,7 @@ def plain_calls():
             setattr(mod, n, fn)
 
 
-def zoo_train_one(torch, arch, cut, B, S, seed) -> dict:
+def zoo_train_one(torch, arch, cut, B, S, lr, seed) -> dict:
     """TRAIN_STEPS bf16 ``train_step`` calls (remat on) of one config at
     full width on one fixed batch of tokens, the last under the profiler
     (its busy share is taken against steps 2 to TRAIN_STEPS - 1).
@@ -2148,7 +2188,7 @@ def zoo_train_one(torch, arch, cut, B, S, seed) -> dict:
     t0 = time.perf_counter()
     model = model_lib.init_model(cfg, seed=seed, device="cuda")
     opt = adamw_init(model)
-    batch = {"tokens": zoo_tokens(torch, cfg, B, S, seed)}
+    batch = zoo_train_batch(torch, cfg, B, S, seed)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     knobs = PerfKnobs(remat=True)
@@ -2161,7 +2201,7 @@ def zoo_train_one(torch, arch, cut, B, S, seed) -> dict:
     for n in range(TRAIN_STEPS):
         def step():
             losses.append(float(train_step(model, opt, batch, knobs=knobs,
-                                           lr=ZOO_TRAIN_LR)))
+                                           lr=lr)))
         launches.reset_launch_counts()
         if n + 1 < TRAIN_STEPS:
             t1 = time.perf_counter()
@@ -2174,6 +2214,8 @@ def zoo_train_one(torch, arch, cut, B, S, seed) -> dict:
                                   top=10, match=match, host=False)
         per_step.append(launches.launch_counts())
     peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"{arch}: peak {peak} bytes of the card's {total}")
     want = {"flash_attention": fwd["attn"], "flash_attention_bwd": n_attn,
             "mlstm_scan": fwd["mlstm"], "mlstm_scan_bwd": n_mlstm}
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -2188,10 +2230,11 @@ def zoo_train_one(torch, arch, cut, B, S, seed) -> dict:
     out = {"arch": arch, "layers": cfg.num_layers,
            "layers_in_config": full_layers, "cut": cut or None,
            "params": model_lib.count_params(model), "dtype": cfg.dtype,
-           "batch": B, "seq": S, "remat": True, "lr": ZOO_TRAIN_LR,
+           "batch": B, "seq": S, "remat": True, "lr": lr,
            "setup_s": setup_s, "losses": losses,
            "ms_per_step": ms, "first_step_ms": step_s[0] * 1e3,
            "tokens_per_s": B * S / (ms / 1e3), "peak_memory_bytes": peak,
+           "device_memory_bytes": total, "inputs": sorted(batch),
            "launches_per_step": per_step[-1],
            "attention_layers": n_attn, "mlstm_layers": n_mlstm,
            "profiled_step": prof}
@@ -2206,8 +2249,8 @@ def zoo_train_phase(torch) -> dict:
     Returns the launches of each kernel over the phase."""
     runs, total = [], {}
     with plain_calls() as plain:
-        for i, (arch, cut, B, S) in enumerate(ZOO_TRAIN):
-            r = zoo_train_one(torch, arch, cut, B, S, seed=20 + i)
+        for i, (arch, cut, B, S, lr) in enumerate(ZOO_TRAIN):
+            r = zoo_train_one(torch, arch, cut, B, S, lr, seed=20 + i)
             runs.append(r)
             for n, c in r["launches_per_step"].items():
                 total[n] = total.get(n, 0) + c * TRAIN_STEPS
@@ -2224,7 +2267,7 @@ def zoo_train_phase(torch) -> dict:
     return total
 
 
-def train_cross_grads(torch, model, tokens, jitter=False):
+def train_cross_grads(torch, model, batch, jitter=False):
     """(loss, {leaf: gradient}, the MoE layers' routes) of one training
     step's ``lm_loss`` with remat; with ``jitter`` the first block's
     input moves by one ulp (``ulp_jitter``), its gradient passing
@@ -2242,8 +2285,7 @@ def train_cross_grads(torch, model, tokens, jitter=False):
             if jitter else None)
     try:
         with moe_inputs(model) as seen:
-            loss, _ = model_lib.lm_loss(model, {"tokens": tokens},
-                                        remat=True)
+            loss, _ = model_lib.lm_loss(model, batch, remat=True)
             loss.backward()
     finally:
         if hook is not None:
@@ -2283,12 +2325,12 @@ def zoo_train_crosscheck_phase(torch) -> dict:
         cpu = copy.deepcopy(gpu).cpu()
         tied_draws = []
         for draw in range(TRAIN_CROSS_DRAWS):
-            tokens = zoo_tokens(torch, cfg, B, S, seed=32 + draw)
+            batch = zoo_train_batch(torch, cfg, B, S, seed=32 + draw)
+            on_cpu = {k: v.cpu() for k, v in batch.items()}
             t1 = time.perf_counter()
-            loss_g, grads_g, routes_g = train_cross_grads(torch, gpu, tokens)
+            loss_g, grads_g, routes_g = train_cross_grads(torch, gpu, batch)
             t2 = time.perf_counter()
-            loss_c, grads_c, routes_c = train_cross_grads(torch, cpu,
-                                                          tokens.cpu())
+            loss_c, grads_c, routes_c = train_cross_grads(torch, cpu, on_cpu)
             t3 = time.perf_counter()
             rel = abs(loss_g - loss_c) / abs(loss_c)
             check(rel <= TRAIN_CROSS_LOSS_RTOL,
@@ -2323,7 +2365,7 @@ def zoo_train_crosscheck_phase(torch) -> dict:
             row["tied_draws"] = tied_draws
         past = [n for n, e in g_err.items() if e > TRAIN_CROSS_GRAD_REL]
         if past:
-            _, grads_j, _ = train_cross_grads(torch, cpu, tokens.cpu(),
+            _, grads_j, _ = train_cross_grads(torch, cpu, on_cpu,
                                               jitter=True)
             sens = {n: float((grads_j[n] - grads_c[n]).abs().max())
                     / scale[n] for n in past}
@@ -3827,28 +3869,17 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
     (ZOO_ATTN_GRAD): CUDA events and profiler device time beside the
     plain version's autograd, SDPA's backward on the same bf16 inputs
     and mask (K/V repeated to H heads and transposed beforehand, the
-    forward outside the timing), and the bound: bytes (q, k, v, dO read,
-    dQ, dK, dV written in bf16; lse read in f32) over 3.35 TB/s or the
-    five products' 10 hd operations a head for each pair the masks
-    leave over the bf16 tensor cores' 989 TFLOP/s, the larger."""
+    forward outside the timing; none with a softcap, which SDPA does not
+    compute), and the bound: bytes (q, k, v, dO read, dQ, dK, dV written
+    in bf16; lse read in f32) over 3.35 TB/s or the five products' 10 hd
+    operations a head for each pair the masks leave over the bf16 tensor
+    cores' 989 TFLOP/s, the larger."""
     out = []
-    for B, S, H, KV, hd, causal, window, label in ZOO_ATTN_GRAD:
+    for B, S, H, KV, hd, causal, window, softcap, label in ZOO_ATTN_GRAD:
         q, k, v, do = (x.bfloat16() for x in attn_grad_inputs(
             torch, B, S, S, H, KV, hd, S + hd))
-        masks = dict(causal=causal, window=window, softcap=0.0)
-        _, lse = fa_ops._forward(q, k, v, causal, window, 0.0, True)
-        qh, kh, vh = (a.repeat_interleave(H // a.shape[2], dim=2)
-                      .transpose(1, 2).contiguous().requires_grad_(True)
-                      for a in (q, k, v))
-        mask = None
-        if window > 0:
-            i = torch.arange(S, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :]
-                                                  > i[:, None] - window)
-        with torch.enable_grad():
-            oh = F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
-        doh = do.transpose(1, 2).contiguous()
+        masks = dict(causal=causal, window=window, softcap=softcap)
+        _, lse = fa_ops._forward(q, k, v, causal, window, softcap, True)
 
         def kern(q=q, k=k, v=v, lse=lse, do=do, masks=masks):
             return fa_ops.flash_attention_bwd(q, k, v, lse, do, **masks)
@@ -3856,30 +3887,53 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
         def plain(q=q, k=k, v=v, do=do, masks=masks):
             return fa_ops.attention_grad_plain(q, k, v, do, **masks)
 
-        def sdpa(oh=oh, qh=qh, kh=kh, vh=vh, doh=doh):
-            return torch.autograd.grad(oh, (qh, kh, vh), doh,
-                                       retain_graph=True)
-
         flops, nbytes = fa_ops.backward_cost(q, k, causal, window)
         bms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS_PER_S)
-        lib_k = profiled_kernels(torch, sdpa, iters=5, host=False)
-        out.append({
-            "config": label, "dtype": "bfloat16",
-            "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                      "causal": causal, "window": window},
-            "kernel_launches": fa_ops.backward_launches(S, hd),
-            "ms": events_ms(torch, kern, iters=10, warmup=2),
-            "device_ms": profiled_ms(torch, kern, SOURCES[
-                "flash_attention_bwd"][2], iters=5, host=False),
-            "plain_ms": events_ms(torch, plain, iters=2, warmup=1),
-            "library_ms": events_ms(torch, sdpa, iters=10, warmup=2),
-            "library_device_ms": sum(lib_k.values()) or None,
-            "library_kernel": (max(lib_k, key=lib_k.get)[:80]
-                               if lib_k else None),
-            "bound_ms": bms, "bound_by": by})
-        del q, k, v, do, lse, qh, kh, vh, oh, doh, mask
+        row = {"config": label, "dtype": "bfloat16",
+               "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                         "causal": causal, "window": window,
+                         "softcap": softcap},
+               "kernel_launches": fa_ops.backward_launches(S, hd),
+               "ms": events_ms(torch, kern, iters=10, warmup=2),
+               "device_ms": profiled_ms(torch, kern, SOURCES[
+                   "flash_attention_bwd"][2], iters=5, host=False),
+               "plain_ms": events_ms(torch, plain, iters=2, warmup=1),
+               "library_ms": None, "library_device_ms": None,
+               "library_kernel": None, "bound_ms": bms, "bound_by": by}
+        if not softcap:
+            row.update(sdpa_bwd_times(torch, F, q, k, v, do, causal, window))
+        out.append(row)
+        del q, k, v, do, lse
         torch.cuda.empty_cache()
     return out
+
+
+def sdpa_bwd_times(torch, F, q, k, v, do, causal, window) -> dict:
+    """SDPA's backward on the inputs of one attention backward (B, S,
+    heads, hd), its forward outside the timing: events and the
+    profiler's device time and top kernel."""
+    S, H = q.shape[1], q.shape[2]
+    qh, kh, vh = (a.repeat_interleave(H // a.shape[2], dim=2)
+                  .transpose(1, 2).contiguous().requires_grad_(True)
+                  for a in (q, k, v))
+    mask = None
+    if window > 0:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :]
+                                              > i[:, None] - window)
+    with torch.enable_grad():
+        oh = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+
+    lib_k = profiled_kernels(torch, sdpa, iters=5, host=False)
+    return {"library_ms": events_ms(torch, sdpa, iters=10, warmup=2),
+            "library_device_ms": sum(lib_k.values()) or None,
+            "library_kernel": (max(lib_k, key=lib_k.get)[:80]
+                               if lib_k else None)}
 
 
 SHARDED_ARCH, SHARDED_B, SHARDED_S, SHARDED_STEPS = "tinyllama-1.1b", 4, 512, 8

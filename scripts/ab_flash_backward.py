@@ -11,9 +11,13 @@ the tree has them, the parts of ``flash_attention_bwd_part.cu`` with its
 ``PARTS`` defines, all nvcc processes side by side), loads both
 with ctypes, and times them at the training shapes (B, H, S = T, hd) =
 (16, 8, 128, 32), (16, 4, 128, 40) and (32, 4, 128, 32), non-causal,
-in turns: other, this, this, other, for ``--rounds`` rounds.  Each turn
-reports CUDA-event time over 200 launches after 20 warm-up launches and
-the profiler's device time per call (all of a call's launches).  SDPA's
+in turns: other, this, this, other, for ``--rounds`` rounds; then at
+the zoo's bf16 training shapes (``chip_smoke.py``'s ``ZOO_ATTN_GRAD``:
+GQA, causal, window and softcap as each config has them, with the
+row-sum workspace where the kernel takes two launches).  Each turn
+reports CUDA-event time over 200 launches after 20 warm-up launches (10
+and 10 at the zoo's shapes) and the profiler's device time per call
+(all of a call's launches).  SDPA's
 backward (``torch.autograd.grad`` through
 ``scaled_dot_product_attention``) is timed the same way in each round,
 as the library yardstick.  Both trees get the same inputs and the same
@@ -71,6 +75,25 @@ def build(tree: Path, out: Path) -> ctypes.CDLL:
     return lib
 
 
+def log_sum_exp(q, k, scale, causal, window, softcap):
+    """The forward's log-sum-exp of each row (B, H, S), in f32 by
+    PyTorch: both trees read the same one."""
+    import torch
+    kr = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float() * scale, kr)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    S, T = s.shape[-2:]
+    i, j = torch.arange(S, device=s.device), torch.arange(T, device=s.device)
+    ok = torch.ones(S, T, dtype=torch.bool, device=s.device)
+    if causal:
+        ok &= j[None, :] <= i[:, None]
+    if window:
+        ok &= j[None, :] > i[:, None] - window
+    return torch.logsumexp(s.masked_fill(~ok, float("-inf")),
+                           dim=-1).contiguous()
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -87,7 +110,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def events_ms(fn, iters=200):
-        for _ in range(20):
+        for _ in range(min(20, iters)):
             fn()
         torch.cuda.synchronize()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -113,56 +136,83 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"other": build(args.other.resolve(), Path(tmp) / "o.so"),
                 "this": build(ROOT, Path(tmp) / "t.so")}
-        for B, H, S, hd in SHAPES:
+        cases = [(B, S, H, H, hd, False, 0, 0.0, "float32", None)
+                 for B, H, S, hd in SHAPES]
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke
+        cases += [(*c[:8], "bfloat16", c[8])
+                  for c in chip_smoke.ZOO_ATTN_GRAD]
+        for B, S, H, KV, hd, causal, window, softcap, dt, label in cases:
             g = torch.Generator(device="cuda").manual_seed(hd)
-            q, k, v, do = (torch.randn(B, S, H, hd, device="cuda",
-                                       generator=g) for _ in range(4))
+            q, do = (torch.randn(B, S, H, hd, device="cuda", generator=g)
+                     .to(getattr(torch, dt)) for _ in range(2))
+            k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g)
+                    .to(getattr(torch, dt)) for _ in range(2))
             scale = 1.0 / math.sqrt(hd)
-            lse = torch.logsumexp(torch.einsum("bshd,bthd->bhst", q * scale,
-                                               k), dim=-1).contiguous()
+            masks = dict(causal=causal, window=window, softcap=softcap)
+            lse = log_sum_exp(q, k, scale, **masks)
             grads = {n: tuple(torch.empty_like(x) for x in (q, k, v))
                      for n in libs}
             work = torch.empty(2, B, H, S, device="cuda")
+            two = fa.backward_launches(S, hd) == 2
 
             def call(name):
                 lib, (dq, dk, dv) = libs[name], grads[name]
                 ws = ([work[0].data_ptr(), work[1].data_ptr()]
-                      if lib.two_workspaces else [None])
+                      if lib.two_workspaces
+                      else [work.data_ptr() if two else None])
                 err = lib.tryage_flash_attention_bwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), *ws, dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), B, S, S, H, H, hd, 0, 0, 0.0, scale,
-                    *([0] if lib.dtype_flag else []), stream)
+                    dv.data_ptr(), B, S, S, H, KV, hd, int(causal), window,
+                    softcap, scale,
+                    *([int(dt == "bfloat16")] if lib.dtype_flag else []),
+                    stream)
                 if err:
                     raise RuntimeError(f"{name}: launch error {err}")
 
-            qh, kh, vh = (a.transpose(1, 2).contiguous().requires_grad_(True)
+            qh, kh, vh = (a.repeat_interleave(H // a.shape[2], dim=2)
+                          .transpose(1, 2).contiguous().requires_grad_(True)
                           for a in (q, k, v))
+            mask = None
+            if window > 0:
+                i = torch.arange(S, device="cuda")
+                mask = (i[None, :] <= i[:, None]) & (i[None, :]
+                                                      > i[:, None] - window)
             with torch.enable_grad():
-                oh = F.scaled_dot_product_attention(qh, kh, vh)
+                oh = F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask,
+                    is_causal=causal and mask is None)
             doh = do.transpose(1, 2).contiguous()
 
             def sdpa():
                 return torch.autograd.grad(oh, (qh, kh, vh), doh,
                                            retain_graph=True)
 
-            want = fa.attention_grad_plain(q, k, v, do, causal=False)
+            want = fa.attention_grad_plain(q.float(), k.float(), v.float(),
+                                           do.float(), **masks)
             err = {}
             for name in libs:
                 call(name)
                 torch.cuda.synchronize()
-                err[name] = max(float((a - w).abs().max()) / float(
+                err[name] = max(float((a.float() - w).abs().max()) / float(
                     w.abs().max()) for a, w in zip(grads[name], want))
+            del want
+            iters = 200 if S <= 128 else 10
             turns, library = [], []
             for _ in range(args.rounds):
                 for name in ("other", "this", "this", "other"):
                     fn = (lambda name=name: call(name))
-                    turns.append({"tree": name, "ms": events_ms(fn),
-                                  "device_ms": device_ms(fn, KERNEL)})
-                library.append({"ms": events_ms(sdpa),
-                                "device_ms": device_ms(sdpa)})
+                    turns.append({"tree": name, "ms": events_ms(fn, iters),
+                                  "device_ms": device_ms(fn, KERNEL,
+                                                         iters // 4 or 1)})
+                if not softcap:   # SDPA has no softcap
+                    library.append({"ms": events_ms(sdpa, iters),
+                                    "device_ms": device_ms(
+                                        sdpa, None, iters // 4 or 1)})
             results.append({
-                "shape": {"B": B, "H": H, "S": S, "T": S, "hd": hd},
+                "shape": {"B": B, "H": H, "KV": KV, "S": S, "T": S, "hd": hd,
+                          **masks, "dtype": dt, "config": label},
                 "max_err_rel_to_max": err, "turns": turns,
                 "sdpa_backward": library})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,9 +2,10 @@
 
     M-hat = argmin_i [ L-hat(z, M_i) + sum_j lambda_j * C_j(M_i) ]
 
-The numpy half of ``repro.core.objective``: constraints, the
-confidence map and the cascade / fallback walks.  The argmin itself
-runs in the router kernels.
+``repro.core.objective`` in numpy on the host: constraints, the
+routing score and its argmin (``route``), the confidence map and the
+cascade / fallback walks.  The serving engine's argmin runs in the
+router kernels.
 
 Constraints are scalar functions of expert metadata; the user supplies
 weights lambda_j (via flags in the prompt, or programmatically).  With a
@@ -16,7 +17,9 @@ notion of their own reliability, so a misprediction commits the prompt
 to the wrong expert with full conviction.  Given a per-expert
 predictive-uncertainty estimate sigma (``core.router`` uncertainty
 head), this module derives a calibrated confidence score
-``1 / (1 + sigma)`` in (0, 1) and the abstention/escalation rule the serving cascade applies: when the
+``1 / (1 + sigma)`` in (0, 1), an optional confidence-penalized variant
+of the routing score (``routing_scores(..., uncertainty, risk_weight)``),
+and the abstention/escalation rule the serving cascade applies: when the
 chosen expert's confidence falls below a request's threshold, walk the
 size-ordered escalation ladder to the next-larger expert until the
 router is confident enough (or the bounded depth / largest expert is
@@ -50,22 +53,43 @@ def size_constraint(library: ModelLibrary) -> Constraint:
     return Constraint("size", sizes / sizes.max())
 
 
+def log_size_constraint(library: ModelLibrary) -> Constraint:
+    """Log-size penalty C(M_i) = log|W_i| / max log|W_i|."""
+    sizes = library.sizes()
+    return Constraint("log_size", np.log(sizes) / np.log(sizes).max())
+
+
 def recency_constraint(library: ModelLibrary) -> Constraint:
     """Penalize stale models: C = 1 - recency."""
     return Constraint("recency", 1.0 - library.recencies())
 
 
 def routing_scores(pred_losses, constraints: Sequence[Constraint],
-                   lambdas: Sequence[float]) -> np.ndarray:
+                   lambdas: Sequence[float], uncertainty=None,
+                   risk_weight: float = 0.0) -> np.ndarray:
     """(..., n_models) combined routing loss L_R = L-hat + sum_j
-    lambda_j C_j, in the predictions' type."""
+    lambda_j C_j, in the predictions' type.  With ``uncertainty`` (per-
+    expert sigma, the shape of ``pred_losses``) and ``risk_weight > 0``
+    experts the router distrusts are handicapped by ``risk_weight *
+    sigma``; without, the original objective exactly."""
     if len(constraints) != len(lambdas):
         raise ValueError(f"{len(constraints)} constraints, "
                          f"{len(lambdas)} lambdas")
     score = np.asarray(pred_losses)
     for c, lam in zip(constraints, lambdas):
         score = score + lam * np.asarray(c.values, score.dtype)
+    if uncertainty is not None and risk_weight:
+        score = score + risk_weight * np.asarray(uncertainty, score.dtype)
     return score
+
+
+def route(pred_losses, constraints: Sequence[Constraint] = (),
+          lambdas: Sequence[float] = (), uncertainty=None,
+          risk_weight: float = 0.0) -> np.ndarray:
+    """argmin of the routing objective over the last axis of
+    pred_losses (..., n_models); ties go to the lower index."""
+    return np.argmin(routing_scores(pred_losses, constraints, lambdas,
+                                    uncertainty, risk_weight), axis=-1)
 
 
 def constraint_matrix(constraints: Sequence[Constraint],

@@ -62,7 +62,14 @@
 //   and 2t + 1 of each 8-row step, and the k index of those products is
 //   permuted to match (A column t <-> row 2t, t + 4 <-> row 2t + 1, dO
 //   and q read in the same order), as the forward does for P V.  dK and
-//   dV accumulate in registers over all tiles.
+//   dV accumulate in registers over all tiles, a tile's products for an
+//   n-tile in a fresh accumulator first: the tensor cores' f32
+//   accumulate truncates toward zero, and one chain over all tiles
+//   drifts with its length (3.3e-4 of dK's largest value at 6,912
+//   k-steps, starcoder2's 48:4 heads at 4,608 rows), where a tile's NR
+//   k-steps and one rounded add do not.  dS^T's A fragments are read
+//   back from shared memory at each use, so that no instance spills;
+//   that costs up to 10% at the zoo's bf16 shapes (PERF.md).
 // * T <= 128 (every shape training runs: S = T = 128): one launch, S and
 //   dP once per (row, key).  The row sums come from the same pass: each
 //   warp reduces its 16 keys by shuffles (a reduce-scatter over the 8

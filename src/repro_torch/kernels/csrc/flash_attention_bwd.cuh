@@ -212,6 +212,17 @@ __device__ __forceinline__ void mma_in(float (&d)[4], const Split (&a)[4],
   }
 }
 
+// Two floats of shared memory, loaded anew at every call: the compiler
+// may neither reuse an earlier load nor keep the values it stored there.
+__device__ __forceinline__ float2 lds2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+
 // P in place of the scores: exp(S - lse) where the score is unmasked, 0
 // where it is masked or out of range, 1 / T over the in-range keys of a
 // row with no key.  With kCap the scores pass through the softcap, and
@@ -571,28 +582,46 @@ flash_attention_bwd_kernel(Args a) {
     // dV += P^T dO over the tile, then dK += dS^T q: the 8-row step j is
     // a k-step, A column t is row 2t and column t + 4 row 2t + 1 (see the
     // header).  Two loops, not one: with both A fragments live at once,
-    // bf16's 16 n-tiles (hd 128 and 256) spill beside dK and dV
+    // bf16's 16 n-tiles (hd 128 and 256) spill beside dK and dV.  Each
+    // n-tile's NR k-steps run in a fresh accumulator, then added to dV
+    // or dK: the tensor cores' f32 accumulate truncates toward zero, so
+    // one chain over every tile of a long sequence drifts (at
+    // starcoder2's 12 query heads of 4,608 rows, 6,912 k-steps a chain,
+    // dK moved by 3.3e-4 of its largest value); NR k-steps and one
+    // rounded add keep dK and dV at f32's rounding.  With the n-tiles
+    // outside, every k-step's A fragment serves all of them: dS^T's are
+    // read back from ds_s at each use (lds2; grads_t put them there), so
+    // that its split halves need not all stay in registers, which
+    // spilled beside dK and dV.
 #pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const Split ap[4] = {split_tf32_rz(p[j][0]), split_tf32_rz(p[j][2]),
-                           split_tf32_rz(p[j][1]), split_tf32_rz(p[j][3])};
-      const float* dr = dos + (8 * j + 2 * t) * KS + g;
+    for (int n = 0; n < KO; ++n) {
+      const int c = 8 * (n0 + n);
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int n = 0; n < KO; ++n) {
-        const int c = 8 * (n0 + n);
-        mma_in<G::kBf16>(dv[n], ap, dr[c], dr[KS + c]);
+      for (int j = 0; j < NR; ++j) {
+        const Split ap[4] = {split_tf32_rz(p[j][0]), split_tf32_rz(p[j][2]),
+                             split_tf32_rz(p[j][1]), split_tf32_rz(p[j][3])};
+        const float* dr = dos + (8 * j + 2 * t) * KS + g;
+        mma_in<G::kBf16>(acc, ap, dr[c], dr[KS + c]);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[n][e] += acc[e];
     }
+    const float* dsw = ds_s + (16 * warp + g) * G::DS + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const Split as[4] = {split_tf32_rz(dp[j][0]), split_tf32_rz(dp[j][2]),
-                           split_tf32_rz(dp[j][1]), split_tf32_rz(dp[j][3])};
-      const float* qr = qs + (8 * j + 2 * t) * KS + g;
+    for (int n = 0; n < KO; ++n) {
+      const int c = 8 * (n0 + n);
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int n = 0; n < KO; ++n) {
-        const int c = 8 * (n0 + n);
-        mma_in<G::kBf16>(dk[n], as, qr[c], qr[KS + c]);
+      for (int j = 0; j < NR; ++j) {
+        const float2 x = lds2(dsw + 8 * j), y = lds2(dsw + 8 * G::DS + 8 * j);
+        const Split as[4] = {split_tf32_rz(x.x), split_tf32_rz(y.x),
+                             split_tf32_rz(x.y), split_tf32_rz(y.y)};
+        const float* qr = qs + (8 * j + 2 * t) * KS + g;
+        mma_in<G::kBf16>(acc, as, qr[c], qr[KS + c]);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] += acc[e];
     }
 
     if constexpr (!G::kWide) {

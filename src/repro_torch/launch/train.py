@@ -27,10 +27,8 @@ import numpy as np
 
 def arch_batches(cfg, steps: int, batch: int, seq: int):
     """The reference CLI's batches, one a step, as numpy arrays: a
-    uniform mixture of the corpus's domains (seed 0); the encoder, vlm
-    and audio families take random-normal ``embeds`` with MLM
-    ``targets`` and ``mask`` (and the encoder its masked ``tokens``)."""
-    from repro_torch.data.batching import mlm_batch
+    uniform mixture of the corpus's domains (seed 0), made into the
+    family's batch by ``family_batch``."""
     from repro_torch.data.corpus import DomainCorpus
 
     corpus = DomainCorpus(vocab_size=cfg.vocab_size)
@@ -38,17 +36,28 @@ def arch_batches(cfg, steps: int, batch: int, seq: int):
     uniform = {d: 1.0 / 8 for d in corpus.tables}
     for _ in range(steps):
         toks, _lab = corpus.sample_mixture(uniform, batch, seq, rng)
-        toks = np.clip(toks, 0, cfg.vocab_size - 1)
-        if cfg.is_encoder or cfg.family in ("vlm", "audio"):
-            mb = mlm_batch(toks, rng, 0.15, cfg.vocab_size)
-            out = {"embeds": rng.standard_normal(
-                       (batch, seq, cfg.d_model)).astype(np.float32),
-                   "targets": mb["targets"], "mask": mb["mask"]}
-            if cfg.family not in ("vlm", "audio"):
-                out["tokens"] = mb["tokens"]
-        else:
-            out = {"tokens": toks, "mask": np.ones((batch, seq), np.int32)}
-        yield out
+        yield family_batch(cfg, toks, rng)
+
+
+def family_batch(cfg, toks, rng) -> dict:
+    """The reference CLI's batch for ``cfg`` from token ids (B, S): the
+    encoder, vlm and audio families take random-normal ``embeds`` with
+    MLM ``targets`` and ``mask`` (and the encoder its masked
+    ``tokens``), the decoders the tokens with a mask of ones.  ``rng``
+    draws the masking and the embeddings, in the reference's order."""
+    from repro_torch.data.batching import mlm_batch
+
+    toks = np.clip(toks, 0, cfg.vocab_size - 1)
+    batch, seq = toks.shape
+    if cfg.is_encoder or cfg.family in ("vlm", "audio"):
+        mb = mlm_batch(toks, rng, 0.15, cfg.vocab_size)
+        out = {"embeds": rng.standard_normal(
+                   (batch, seq, cfg.d_model)).astype(np.float32),
+               "targets": mb["targets"], "mask": mb["mask"]}
+        if cfg.family not in ("vlm", "audio"):
+            out["tokens"] = mb["tokens"]
+        return out
+    return {"tokens": toks, "mask": np.ones((batch, seq), np.int32)}
 
 
 def train_arch(arch: str, steps: int, batch: int, seq: int, device=None,

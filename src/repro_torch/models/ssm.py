@@ -13,6 +13,10 @@ the state (f32 ``h`` (B, di, ds) and the causal convolution's last
 the linear recurrence h_t = dA_t h_{t-1} + dBx_t is a scan of log2(L)
 doubling steps over (B, L, di, ds) f32 tensors (the reference's
 ``associative_scan`` with the same combine), with no loop over time.
+Under autograd each chunk's scan runs in a checkpoint: its (B, L, di,
+ds) intermediates, some twenty a chunk, are computed again in the
+backward rather than kept (a remat'd jamba unit of 7 Mamba layers at
+2,048 tokens would keep over 70 GB of them a card on a (2, 2) mesh).
 ``mamba_step`` is the recurrence for one token.
 
 The mLSTM/sLSTM dtype seams are the JAX package's: q/k/v come from
@@ -36,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.mlstm_scan.ops import (log_sigmoid, mlstm_chunkwise,
                                                 mlstm_sequential)
@@ -43,7 +48,8 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import head_proj, trunc_normal
 from repro_torch.models.scan_utils import pick_chunk
 from repro_torch.sharding import local
-from repro_torch.sharding.context import (distribute, is_dtensor, shard_act,
+from repro_torch.sharding.context import (distribute, is_dtensor,
+                                          recompute_context, shard_act,
                                           shard_zeros)
 
 
@@ -164,7 +170,12 @@ def mamba_full(p, x, cfg: ModelConfig, state=None, chunk=256):
     for t in range(0, T, ck):
         xc, conv = _causal_conv(p, xs[:, t:t + ck], conv, dc)
         dt, Bm, Cm = _mamba_postconv(p, xc, cfg)
-        y, h = _mamba_inner(p, xc.float(), dt, Bm, Cm, h)
+        if torch.is_grad_enabled():
+            y, h = checkpoint(_mamba_inner, p, xc.float(), dt, Bm, Cm, h,
+                              use_reentrant=False,
+                              context_fn=recompute_context)
+        else:
+            y, h = _mamba_inner(p, xc.float(), dt, Bm, Cm, h)
         ys.append(y)
     out = torch.cat(ys, 1).to(x.dtype) * F.silu(z)
     return out @ p["out_proj"], {"h": h, "conv": conv}

@@ -11,7 +11,12 @@ the parameter's type.
 
 Unlike the JAX function, ``adamw_update`` writes the new parameters and
 moments in place (a full copy of the weights a step would cost memory
-for nothing); it returns the module and the new ``OptState``.
+for nothing); it returns the module and the new ``OptState``.  A leaf
+of more than ``CHUNK`` elements is read in flat slices of at most that
+many, so the update's f32 temporaries take about 1.5 GB however large
+the leaf (grok-1's expert weights hold 1.6 B elements a leaf): every
+element takes the same operations, so the values are the same; only
+the clip's sum of squares adds the slices' sums in turn.
 
 On DTensor parameters (a sharded step, ``launch.steps.shard_model``)
 each gradient is first laid out as its parameter, the moments must be
@@ -31,6 +36,9 @@ import torch
 from torch import nn
 
 from repro_torch.sharding.context import is_dtensor, replicating
+
+#: elements of a leaf the update reads at once (a DTensor's whole)
+CHUNK = 1 << 26
 
 
 @dataclasses.dataclass
@@ -60,21 +68,34 @@ def adamw_update(params: nn.Module, grads: dict, state: OptState, *, lr,
     sharded = any(is_dtensor(p) for _, p in named)
     gs = [_laid_as(grads[n], p) for n, p in named]
     with replicating(sharded):
+        scale = None
         if grad_clip and grad_clip > 0:
-            gnorm = torch.sqrt(sum(_whole(g.float().square().sum())
-                                   for g in gs))
+            gnorm = torch.sqrt(sum(_whole(c.float().square().sum())
+                                   for g in gs for c in _chunks(g)))
             scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-9), max=1.0)
-            gs = [g * scale.to(g.dtype) for g in gs]
         c1, c2 = 1 - b1 ** step, 1 - b2 ** step
         for (n, p), g in zip(named, gs):
-            g32 = g.float()
-            m, v = state.mu[n], state.nu[n]
-            m.mul_(b1).add_(g32, alpha=1 - b1)
-            v.mul_(b2).add_(g32.square(), alpha=1 - b2)
-            p32 = p.float()
-            delta = (m / c1) / ((v / c2).sqrt() + eps) + weight_decay * p32
-            p.copy_((p32 - lr_t * delta).to(p.dtype))
+            for pc, gc, m, v in zip(*(_chunks(t) for t in (
+                    p, g, state.mu[n], state.nu[n]))):
+                if scale is not None:
+                    gc = gc * scale.to(gc.dtype)
+                g32 = gc.float()
+                m.mul_(b1).add_(g32, alpha=1 - b1)
+                v.mul_(b2).add_(g32.square(), alpha=1 - b2)
+                p32 = pc.float()
+                delta = ((m / c1) / ((v / c2).sqrt() + eps)
+                         + weight_decay * p32)
+                pc.copy_((p32 - lr_t * delta).to(pc.dtype))
     return params, OptState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _chunks(t) -> list:
+    """Flat views of ``t`` of at most CHUNK elements each (``t`` itself
+    when it is smaller, or a DTensor); a parameter or moment written in
+    place must be contiguous."""
+    if is_dtensor(t) or t.numel() <= CHUNK:
+        return [t]
+    return list(t.view(-1).split(CHUNK))
 
 
 def _laid_as(g, p):

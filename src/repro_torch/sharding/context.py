@@ -129,10 +129,18 @@ def shard_act(x, logical_axes: tuple, dim_sizes=None):
 def distribute(t: torch.Tensor, device_mesh, where) -> torch.Tensor:
     """``t`` (the full tensor, the same on every rank) as a DTensor laid
     out by the placements ``where``: each rank keeps its own block,
-    nothing is sent."""
+    nothing is sent.  A block that is a view of ``t`` (a split of its
+    first dim) is copied, so that ``t``'s memory goes with ``t``: a
+    sharded model does not keep the whole one alive."""
     from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t.detach(), device_mesh, where,
-                             src_data_rank=None)
+    out = distribute_tensor(t.detach(), device_mesh, where,
+                            src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        out = DTensor.from_local(local.clone(), device_mesh, where,
+                                 run_check=False, shape=out.shape,
+                                 stride=out.stride())
+    return out
 
 
 def shard_zeros(shape, logical_axes: tuple, dtype=torch.float32,

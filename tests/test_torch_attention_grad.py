@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as tattn
 from repro_torch.models.common import AttnConfig as TAttn
 from repro_torch.models.common import ModelConfig as TCfg
-from test_torch_tf32 import MMS, chip_smoke
+from test_torch_tf32 import MMS, chip_smoke, tf32, tf32_rz
 from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
@@ -394,6 +394,64 @@ def test_backward_tf32_within_tolerance(case, scheme):
             assert rel <= tol, rel
         else:
             assert rel > tol, rel
+
+
+def _rz32(x):
+    """An f64 value rounded toward zero to f32: what mma.sync's f32
+    accumulate keeps of its exact sum."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_sum(dst, q, tile_steps=None):
+    """dK's sum dS^T q over a key block's rows as the kernel runs it: 8-row
+    k-steps of 3xTF32 ``mma.sync`` (both operands split, small truncated
+    by the tensor cores; small terms first), each pass's f32 accumulate
+    truncated toward zero.  ``tile_steps`` None: one chain over all rows;
+    else a fresh chain a tile of that many k-steps, added to the running
+    sum rounded to nearest."""
+    total = torch.zeros(dst.shape[0], q.shape[1], dtype=torch.float32)
+    acc = torch.zeros_like(total)
+
+    def split(x):
+        big = tf32(x)
+        return tf32_rz(x - big), big
+
+    for step, r0 in enumerate(range(0, dst.shape[1], 8)):
+        a_small, a_big = split(dst[:, r0:r0 + 8])
+        b_small, b_big = split(q[r0:r0 + 8])
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            acc = _rz32(acc.double() + x.double() @ y.double())
+        if tile_steps and (step + 1) % tile_steps == 0:
+            total, acc = total + acc, torch.zeros_like(acc)
+    return total + acc
+
+
+@pytest.mark.parametrize("rows", [4096, 12 * 4608])
+def test_dk_sum_needs_a_fresh_accumulator_a_tile(rows):
+    """One warp's 16 keys x 8 columns of dK summed over a key block's
+    rows.  The tensor cores truncate every accumulate, so one chain over
+    all rows drifts with its length: within the card's gate at gemma3's
+    2 heads x 2,048 rows (512 k-steps; the card read 5.5e-5), past it at
+    starcoder2's 12 query heads x 4,608 rows (6,912 k-steps; the card
+    read 3.3e-4).  A fresh accumulator a tile of 4 k-steps (hd 128's 32
+    rows), added rounded, stays at f32's rounding."""
+    g = torch.Generator().manual_seed(rows)
+    dst, q = torch.randn(16, rows, generator=g), torch.randn(rows, 8,
+                                                           generator=g)
+    exact = dst.double() @ q.double()
+    tol = chip_smoke.ATTN_GRAD_REL_TOL
+
+    def rel(got):
+        return float((got.double() - exact).abs().max() / exact.abs().max())
+
+    one_chain, tiled = rel(_mma_sum(dst, q)), rel(_mma_sum(dst, q, 4))
+    assert tiled <= tol / 20, tiled
+    if rows > 4096:
+        assert one_chain > tol, one_chain
+    else:
+        assert one_chain <= tol, one_chain
 
 
 def test_flash_attention_is_differentiable_on_the_cpu():
