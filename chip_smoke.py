@@ -435,11 +435,13 @@ SOURCES = {
                        "src/repro/models/ssm.py:254", "mlstm_bwd_"),
 }
 ROUTER_PATH = ("router_score", "router_cascade", "flash_attention")
-# kernels whose products run on the tensor cores (3xTF32; bf16 attention
-# in one or two TF32 passes): name -> the functions that must hold TF32
-# HMMA or HGMMA ("" every one).  The mLSTM backward's small launches
-# (prep, ds, gate_grads) run on the CUDA cores in f32; its products all
-# run in the mlstm_bwd_mma_* launches (wgmma: TF32 HGMMA).
+# kernels whose products run on the tensor cores: name -> the functions
+# that must hold HMMA or HGMMA ("" every one).  An f32 instance holds
+# TF32 kinds only (3xTF32); a bf16 instance (its mangled name holds
+# __nv_bfloat16: the attention forward's and backward's) BF16 kinds only
+# (mma.sync.m16n8k16).  The mLSTM backward's small launches (prep, ds,
+# gate_grads) run on the CUDA cores in f32; its products all run in the
+# mlstm_bwd_mma_* launches (wgmma: TF32 HGMMA).
 TENSOR_CORE = {"flash_attention": "", "flash_attention_bwd": "",
                "mlstm_scan": "", "mlstm_scan_bwd": "mlstm_bwd_mma"}
 
@@ -529,10 +531,11 @@ def build_phase() -> None:
                   f"{fn} spills registers: {info}")
             if name in TENSOR_CORE:
                 mma = sass.get(fn, {"hmma": 0, "kinds": []})
+                kind = "BF16" if "__nv_bfloat16" in fn else "TF32"
                 check((mma["hmma"] > 0 or TENSOR_CORE[name] not in fn)
-                      and all("TF32" in k for k in mma["kinds"]),
-                      f"{fn}: no TF32 tensor-core instructions in its SASS "
-                      f"({mma})")
+                      and all(kind in k for k in mma["kinds"]),
+                      f"{fn}: tensor-core instructions of another kind than "
+                      f"{kind}, or none, in its SASS ({mma})")
                 info = {**info, "sass_hmma": mma["hmma"],
                         "sass_hmma_kinds": mma["kinds"]}
             kernels.setdefault(name, {})[fn] = info
@@ -2062,7 +2065,8 @@ def attention_grad_phase(torch) -> float:
         torch.cuda.synchronize()
         case = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, **masks,
                 "dtype": dt, "config": label,
-                "kernel_launches": fa_ops.backward_launches(T, hd)}
+                "kernel_launches": fa_ops.backward_launches(
+                    T, hd, dt == "bfloat16")}
         for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
             err = (a.float() - w).abs()
             e, scale = float(err.max()), float(w.abs().max())
@@ -3803,7 +3807,7 @@ def zoo_attention_times(torch, F, fa_ops) -> list:
     (q, k, v read, o written) over 3.35 TB/s or the unmasked pairs'
     4 hd operations a head over the bf16 tensor cores' 989 TFLOP/s,
     the larger.  SDPA rounds P to bf16 for its P V product; the kernel
-    keeps P in f32 (two TF32 passes).  SDPA has no softcap: at grok's
+    keeps P in f32 (two bf16 pieces).  SDPA has no softcap: at grok's
     shape (softcap 30) it computes attention without one, so its time is
     beside the kernel's but its error is taken against the plain version
     without softcap."""
@@ -3893,7 +3897,7 @@ def zoo_attention_bwd_times(torch, F, fa_ops) -> list:
                "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
                          "causal": causal, "window": window,
                          "softcap": softcap},
-               "kernel_launches": fa_ops.backward_launches(S, hd),
+               "kernel_launches": fa_ops.backward_launches(S, hd, True),
                "ms": events_ms(torch, kern, iters=10, warmup=2),
                "device_ms": profiled_ms(torch, kern, SOURCES[
                    "flash_attention_bwd"][2], iters=5, host=False),

@@ -17,12 +17,18 @@ GQA, causal, window and softcap as each config has them, with the
 row-sum workspace where the kernel takes two launches).  Each turn
 reports CUDA-event time over 200 launches after 20 warm-up launches (10
 and 10 at the zoo's shapes) and the profiler's device time per call
-(all of a call's launches).  SDPA's
+(all of a call's launches), beside the bound (the larger of the bytes
+over 3.35 TB/s and the five products' operations over the pairs the
+masks leave, at the bf16 tensor cores' 989 TFLOP/s for bf16 and the f32
+CUDA cores' 67 TFLOP/s for f32).  SDPA's
 backward (``torch.autograd.grad`` through
 ``scaled_dot_product_attention``) is timed the same way in each round,
 as the library yardstick.  Both trees get the same inputs and the same
 log-sum-exp (computed in f32 by PyTorch); the gradients of each are
-held against autograd of the plain version.  Prints one JSON object with
+held against autograd of the plain version by ``chip_smoke.py``'s
+``attention_grad`` gate (bf16: one bf16 ulp of the f32 gradient
+rounded, plus ``ATTN_GRAD_REL_TOL`` of the largest) and a rerun must be
+bit-identical; the exit code is 1 where a tree misses either.  Prints one JSON object with
 the card's name and power limit.
 """
 
@@ -42,31 +48,37 @@ SHAPES = ((16, 8, 128, 32), (16, 4, 128, 40), (32, 4, 128, 32))
 KERNEL = "flash_attention_bwd"   # in every device function's name
 
 
-def build(tree: Path, out: Path) -> ctypes.CDLL:
+def build(tree: Path, out: Path) -> list:
+    """Start nvcc on each backward unit of ``tree``; ``load`` links."""
     from repro_torch.kernels import build as kbuild
     csrc = tree / "src/repro_torch/kernels/csrc"
-    src = csrc / "flash_attention_bwd.cu"
-    units = [(src, ())]
+    units = [(csrc / "flash_attention_bwd.cu", ())]
     if (csrc / "flash_attention_bwd_part.cu").exists():
         units += [(csrc / "flash_attention_bwd_part.cu", d)
                   for d in kbuild.PARTS["flash_attention_bwd_part.cu"]]
-    procs = [subprocess.Popen(
+    return [(subprocess.Popen(
         [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, *d, "-c", str(u), "-o",
-         f"{out}.{i}.o"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for i, (u, d) in enumerate(units)]
-    for p in procs:
+         f"{out}.{i}.o"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+        f"{out}.{i}.o") for i, (u, d) in enumerate(units)]
+
+
+def load(tree: Path, out: Path, procs: list) -> ctypes.CDLL:
+    from repro_torch.kernels import build as kbuild
+    for p, _ in procs:
         if p.wait(timeout=900):
             raise RuntimeError(p.stdout.read().decode())
     subprocess.run([kbuild.nvcc_path(), *kbuild.ARCH, "-shared", "-o",
-                    str(out), *(f"{out}.{i}.o" for i in range(len(units)))],
+                    str(out), *(o for _, o in procs)],
                    check=True, capture_output=True, text=True, timeout=900)
     lib = ctypes.CDLL(str(out))
     fn = lib.tryage_flash_attention_bwd
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    text = src.read_text()
+    text = (tree / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+            ).read_text()
     # a tree with two launches at every shape takes two (B, H, S)
     # workspaces; later designs one (B, H, S, 2), read past 128 keys
-    # only; since bf16 came in, an int says the inputs' type
+    # only (f32) or always (bf16, since its redesign); since bf16 came
+    # in, an int says the inputs' type
     lib.two_workspaces = "float* dsum, float* lse_b" in text
     lib.dtype_flag = "int bf16, void* stream" in text
     fn.argtypes = ([P] * 5 + [P] * (5 if lib.two_workspaces else 4)
@@ -134,8 +146,10 @@ def main() -> int:
 
     results = []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"other": build(args.other.resolve(), Path(tmp) / "o.so"),
-                "this": build(ROOT, Path(tmp) / "t.so")}
+        trees = {"other": args.other.resolve(), "this": ROOT}
+        procs = {n: build(t, Path(tmp) / f"{n}.so") for n, t in trees.items()}
+        libs = {n: load(trees[n], Path(tmp) / f"{n}.so", procs[n])
+                for n in trees}
         cases = [(B, S, H, H, hd, False, 0, 0.0, "float32", None)
                  for B, H, S, hd in SHAPES]
         sys.path.insert(0, str(ROOT))
@@ -154,7 +168,9 @@ def main() -> int:
             grads = {n: tuple(torch.empty_like(x) for x in (q, k, v))
                      for n in libs}
             work = torch.empty(2, B, H, S, device="cuda")
-            two = fa.backward_launches(S, hd) == 2
+            # the workspace wherever either tree takes two launches
+            two = (fa.backward_launches(S, hd) == 2
+                   or fa.backward_launches(S, hd, dt == "bfloat16") == 2)
 
             def call(name):
                 lib, (dq, dk, dv) = libs[name], grads[name]
@@ -191,12 +207,26 @@ def main() -> int:
 
             want = fa.attention_grad_plain(q.float(), k.float(), v.float(),
                                            do.float(), **masks)
-            err = {}
+            err, ok = {}, {}
             for name in libs:
+                call(name)
+                torch.cuda.synchronize()
+                first = tuple(x.clone() for x in grads[name])
                 call(name)
                 torch.cuda.synchronize()
                 err[name] = max(float((a.float() - w).abs().max()) / float(
                     w.abs().max()) for a, w in zip(grads[name], want))
+                # chip_smoke.py's attention_grad gate, and a rerun
+                # bit-identical
+                tol = chip_smoke.ATTN_GRAD_REL_TOL
+                ok[name] = all(
+                    torch.equal(a, b) and bool(
+                        ((a.float() - w).abs() <= tol * w.abs().max() + (
+                            chip_smoke.bf16_ulp(torch, w.bfloat16().float()
+                                                .abs())
+                            if dt == "bfloat16" else 0.0)).all())
+                    for a, b, w in zip(grads[name], first, want))
+                del first
             del want
             iters = 200 if S <= 128 else 10
             turns, library = [], []
@@ -210,16 +240,23 @@ def main() -> int:
                     library.append({"ms": events_ms(sdpa, iters),
                                     "device_ms": device_ms(
                                         sdpa, None, iters // 4 or 1)})
+            flops, nbytes = fa.backward_cost(q, k, causal, window)
+            rate = (chip_smoke.BF16_TC_FLOPS_PER_S if dt == "bfloat16"
+                    else chip_smoke.F32_FLOPS_PER_S)
+            bms, by = chip_smoke.bound_ms(nbytes, flops, rate)
             results.append({
                 "shape": {"B": B, "H": H, "KV": KV, "S": S, "T": S, "hd": hd,
                           **masks, "dtype": dt, "config": label},
-                "max_err_rel_to_max": err, "turns": turns,
-                "sdpa_backward": library})
+                "max_err_rel_to_max": err, "within_gate": ok,
+                "turns": turns, "sdpa_backward": library, "bound_ms": bms,
+                "bound_by": by})
+            del q, k, v, do, lse, grads, work, qh, kh, vh, oh, doh
+            torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": smi, "shapes": results}))
-    return 0
+    return 0 if all(all(r["within_gate"].values()) for r in results) else 1
 
 
 if __name__ == "__main__":

@@ -32,13 +32,15 @@ SOURCES = ("router_score.cu", "router_cascade.cu", "flash_attention.cu",
            "flash_attention_bwd_part.cu", "mlstm_scan.cu",
            "mlstm_scan_bwd.cu", "launch_floor.cu")
 # sources compiled once per part, each with its own defines: the
-# attention backward's 128 kernel instances (f32 and bf16, hd / 8 from 1
-# to 32) in eight parts of 16, so that nvcc's time spreads over the cores
+# attention backward's instances (f32: hd / 8 from 1 to 32, two kernels
+# each; bf16: hd / 16 from 1 to 16, two kernels each) in eight parts, so
+# that nvcc's time spreads over the cores
 PARTS = {"flash_attention_bwd_part.cu": [
     (f"-DTRYAGE_BWD_BF16={bf16}", f"-DTRYAGE_BWD_LO={lo}")
     for bf16 in (0, 1) for lo in (1, 9, 17, 25)]}
-HEADERS = ("common.cuh", "mma_tf32.cuh", "router_head.cuh",
-           "flash_attention.cuh", "flash_attention_bwd.cuh")
+HEADERS = ("common.cuh", "mma_tf32.cuh", "mma_bf16.cuh", "router_head.cuh",
+           "flash_attention.cuh", "flash_attention_bwd.cuh",
+           "flash_attention_bwd_bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",

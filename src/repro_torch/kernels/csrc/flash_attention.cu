@@ -9,31 +9,25 @@
 // filled with NEG_INF (keys past T get -inf), the normaliser l clamped at
 // 1e-30, and o written in q's type (bf16 rounded to nearest even).  hd is
 // a multiple of 8 up to 256 (one template instance per type and hd / 8);
-// S and T are any length.  The body is in flash_attention.cuh; the bf16
-// instances are built in flash_attention_bf16.cu, beside the f32 ones
-// here, so nvcc compiles the two halves in parallel.  With a non-null lse the kernel also writes
-// each row's log-sum-exp m + log(max(l, 1e-30)) (B, H, S), which the
-// backward (flash_attention_bwd.cu, f32 up to hd 128) recomputes P from;
-// serving passes null.
+// S and T are any length.  The f32 body is in flash_attention.cuh; the
+// bf16 instances, a design of their own on the bf16 tensor cores, are
+// in flash_attention_bf16.cu, built beside the f32 ones here, so nvcc
+// compiles the two halves in parallel.  With a non-null lse the kernel
+// also writes each row's log-sum-exp m + log(max(l, 1e-30)) (B, H, S),
+// which the backward (flash_attention_bwd.cu, f32 or bf16 up to hd 256)
+// recomputes P from; serving passes null.
 //
 // Bound on the H100: at the router's shapes (S = T = 128, hd 32 or 40,
 // f32) the operations (4 S T hd per head) outweigh the bytes on the f32
 // CUDA cores; on the tensor cores the bytes bound it.  At the zoo's
 // prefill shapes (bf16, S 512-4608, hd 64-256) the operations bound it.
-// Both products run on the TF32 tensor cores (mma.sync.m16n8k8), with
-// as many passes as each operand type needs to hold the gates:
-// * f32 inputs: 3xTF32 for both products (mma_tf32.cuh): q (pre-scaled),
-//   k, P and v each split into big and small TF32 halves.  One TF32 pass
-//   keeps about 11 bits and fails the f32 tolerances.
-// * bf16 inputs: every bf16 value is exact in TF32 (8 significant bits
-//   of TF32's 11), and a product of two is exact in the f32 accumulator,
-//   so S = q k^T takes ONE pass on the unscaled inputs, and the scale is
-//   applied to S in f32 after it (rounding q * scale to TF32 first would
-//   lose bits).  P is an f32 softmax, so P V takes TWO passes: P's big
-//   and small halves against V, which needs no split.  The f32 sums are
-//   then those of the Pallas kernel in another order, within one bf16
-//   ulp of the plain version after o is rounded to bf16.
-// Design:
+// The f32 instances run both products on the TF32 tensor cores
+// (mma.sync.m16n8k8) in 3xTF32 (mma_tf32.cuh): q (pre-scaled), k, P and
+// v each split into big and small TF32 halves.  One TF32 pass keeps
+// about 11 bits and fails the f32 tolerances.  The bf16 instances
+// (flash_attention_bf16.cu) run on the bf16 tensor cores: q k^T in one
+// pass, P V in two (P's bf16 pieces against the exact V).
+// Design of the f32 instances:
 // * One warp owns 16 query rows.  A block holds 1, 2 or 4 warps: the
 //   caller's choice (the wrapper's launch-config table), or by default
 //   the most that still gives at least one block per SM (132) for this

@@ -1,10 +1,8 @@
-// The attention kernel's body, shared by its two translation units:
-// flash_attention.cu (the C entry point and the f32 instances) and
-// flash_attention_bf16.cu (the bf16 instances), compiled side by side.
-// The design notes are in flash_attention.cu.
+// The f32 attention kernel's body (the instances are built in
+// flash_attention.cu, whose notes give its design), and the helpers the
+// bf16 instances of flash_attention_bf16.cu share with it.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -36,15 +34,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
-// The tile geometry of one instance: Tin the input type, KD = hd / 8
-// k-steps of q k^T, KO the k-steps of O one block accumulates.
+// The tile geometry of one instance: Tin the input type (float), KD =
+// hd / 8 k-steps of q k^T, KO the k-steps of O one block accumulates.
 template <typename Tin, int KD>
 struct Geometry {
-  static constexpr bool kBf16 = std::is_same<Tin, __nv_bfloat16>::value;
+  static_assert(std::is_same<Tin, float>::value, "the f32 instances");
   static constexpr int HD = 8 * KD;
   static constexpr int KO = KD <= 16 ? KD : (KD + 1) / 2;
   static constexpr int NC = (KD + KO - 1) / KO;   // column splits
@@ -52,7 +47,7 @@ struct Geometry {
   static constexpr int kPad = 16 / (int)sizeof(Tin);
   static constexpr int KS = HD + kPad;            // padded K row
   static constexpr int VS = VW + kPad;            // padded V row
-  static constexpr int BK = (!kBf16 && KD > 16) ? 32 : 64;  // keys a tile
+  static constexpr int BK = KD > 16 ? 32 : 64;    // keys a tile
   static constexpr int QS = HD + 4;               // padded q row (f32)
   static constexpr bool kQShared = KD > 8;
   static constexpr size_t kStageBytes = sizeof(Tin) * BK * (KS + VS);
@@ -73,7 +68,7 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   using G = Geometry<Tin, KD>;
   constexpr int HD = G::HD, KO = G::KO, VW = G::VW, KS = G::KS, VS = G::VS;
   constexpr int BK = G::BK, QS = G::QS;
-  constexpr bool kBf16 = G::kBf16, kQShared = G::kQShared;
+  constexpr bool kQShared = G::kQShared;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [2][K tile, V tile] in Tin, then the warps' q rows in f32
 
@@ -129,9 +124,8 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
 
   // q's A fragments: a0..a3 of k-step kk are rows g, g + 8, g, g + 8
   // and columns 8 kk + t, 8 kk + t, 8 kk + t + 4, 8 kk + t + 4 of the
-  // warp's 16 rows, as f32 (pre-scaled for f32 inputs).  In registers up
-  // to hd 64; above, in the warp's own 16 padded rows of shared memory.
-  const float qscale = kBf16 ? 1.0f : scale;
+  // warp's 16 rows, pre-scaled.  In registers up to hd 64; above, in the
+  // warp's own 16 padded rows of shared memory.
   float qf[kQShared ? 1 : KD][4];
   float* qw = reinterpret_cast<float*>(smem_raw + 2 * G::kStageBytes) +
               warp * 16 * QS;
@@ -139,7 +133,7 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
     for (int i = lane; i < 16 * HD; i += 32) {
       const int r = i / HD, c = i - r * HD;
       qw[r * QS + c] = r0 + r < S
-                           ? to_f32(qb[(size_t)(r0 + r) * q_stride + c]) * qscale
+                           ? to_f32(qb[(size_t)(r0 + r) * q_stride + c]) * scale
                            : 0.0f;
     }
     __syncwarp();
@@ -149,10 +143,10 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
     const Tin* q1 = q0 + 8 * q_stride;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][0] = in0 ? to_f32(q0[8 * kk]) * qscale : 0.0f;
-      qf[kk][1] = in1 ? to_f32(q1[8 * kk]) * qscale : 0.0f;
-      qf[kk][2] = in0 ? to_f32(q0[8 * kk + 4]) * qscale : 0.0f;
-      qf[kk][3] = in1 ? to_f32(q1[8 * kk + 4]) * qscale : 0.0f;
+      qf[kk][0] = in0 ? to_f32(q0[8 * kk]) * scale : 0.0f;
+      qf[kk][1] = in1 ? to_f32(q1[8 * kk]) * scale : 0.0f;
+      qf[kk][2] = in0 ? to_f32(q0[8 * kk + 4]) * scale : 0.0f;
+      qf[kk][3] = in1 ? to_f32(q1[8 * kk + 4]) * scale : 0.0f;
     }
   }
   auto q_frag = [&](int kk, int e) -> float {
@@ -192,35 +186,20 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        if constexpr (kBf16) {
-          // exact TF32 operands: one pass
-          const uint32_t a0 = __float_as_uint(q_frag(kk, 0)),
-                         a1 = __float_as_uint(q_frag(kk, 1)),
-                         a2 = __float_as_uint(q_frag(kk, 2)),
-                         a3 = __float_as_uint(q_frag(kk, 3));
+        const Split a[4] = {split_tf32(q_frag(kk, 0)),
+                            split_tf32(q_frag(kk, 1)),
+                            split_tf32(q_frag(kk, 2)),
+                            split_tf32(q_frag(kk, 3))};
 #pragma unroll
-          for (int j = 0; j < kSub / 8; ++j) {
-            const Tin* kr = ks + (kb0 + 8 * j + g) * KS + 8 * kk + t;
-            tryage::mma_tf32(s[j], a0, a1, a2, a3,
-                             __float_as_uint(to_f32(kr[0])),
-                             __float_as_uint(to_f32(kr[4])));
-          }
-        } else {
-          const Split a[4] = {split_tf32(q_frag(kk, 0)),
-                              split_tf32(q_frag(kk, 1)),
-                              split_tf32(q_frag(kk, 2)),
-                              split_tf32(q_frag(kk, 3))};
-#pragma unroll
-          for (int j = 0; j < kSub / 8; ++j) {
-            const Tin* kr = ks + (kb0 + 8 * j + g) * KS + 8 * kk + t;
-            const Split bb[2] = {split_tf32(to_f32(kr[0])),
-                                 split_tf32(to_f32(kr[4]))};
-            tryage::mma_3xtf32(s[j], a, bb);
-          }
+        for (int j = 0; j < kSub / 8; ++j) {
+          const Tin* kr = ks + (kb0 + 8 * j + g) * KS + 8 * kk + t;
+          const Split bb[2] = {split_tf32(to_f32(kr[0])),
+                               split_tf32(to_f32(kr[4]))};
+          tryage::mma_3xtf32(s[j], a, bb);
         }
       }
 
-      // scale (bf16), softcap, masks, online softmax (rows g and g + 8)
+      // softcap, masks, online softmax (rows g and g + 8)
       const int kt = it * BK + kb0;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -230,7 +209,6 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
           const int row = r0 + g + (e >> 1) * 8;
           const int key = kt + 8 * j + 2 * t + (e & 1);
           float x = s[j][e];
-          if constexpr (kBf16) x *= scale;
           if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
           bool ok = true;
           if (causal) ok = ok && key <= row;
@@ -273,19 +251,9 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
         const Tin* v0 = vs + (kb0 + 8 * j + 2 * t) * VS + g;
 #pragma unroll
         for (int n = 0; n < KO; ++n) {
-          if constexpr (kBf16) {
-            // V exact in TF32: P's two halves against it
-            const uint32_t b0 = __float_as_uint(to_f32(v0[8 * n])),
-                           b1 = __float_as_uint(to_f32(v0[VS + 8 * n]));
-            tryage::mma_tf32(acc[n], a[0].small, a[1].small, a[2].small,
-                             a[3].small, b0, b1);
-            tryage::mma_tf32(acc[n], a[0].big, a[1].big, a[2].big, a[3].big,
-                             b0, b1);
-          } else {
-            const Split bb[2] = {split_tf32(v0[8 * n]),
-                                 split_tf32(v0[VS + 8 * n])};
-            tryage::mma_3xtf32(acc[n], a, bb);
-          }
+          const Split bb[2] = {split_tf32(v0[8 * n]),
+                               split_tf32(v0[VS + 8 * n])};
+          tryage::mma_3xtf32(acc[n], a, bb);
         }
       }
     }
@@ -304,11 +272,7 @@ flash_attention_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
     for (int n = 0; n < KO; ++n) {
       if (G::NC > 1 && col0 + 8 * n >= HD) continue;
       const float x0 = acc[n][2 * r] / denom, x1 = acc[n][2 * r + 1] / denom;
-      if constexpr (kBf16)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-            __floats2bfloat162_rn(x0, x1);
-      else
-        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
+      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
     }
   }
 }

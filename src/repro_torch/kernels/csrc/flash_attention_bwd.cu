@@ -3,10 +3,11 @@
 // all bf16, and the forward's f32 log-sum-exp lse (B, H, S), it writes
 // dQ (B, S, H, hd) and dK, dV (B, T, KV, hd) in the inputs' type (bf16
 // rounded to nearest even from f32 sums); hd is a multiple of 8 up to
-// 256, one template instance per type and hd / 8.  The body is in
-// flash_attention_bwd.cuh; its 128 kernel instances are built in eight
-// parts side by side (flash_attention_bwd_part.cu), so that nvcc's time
-// is spread over the cores.  The Pallas
+// 256.  The f32 body is in flash_attention_bwd.cuh (an instance per hd /
+// 8), the bf16 one in flash_attention_bwd_bf16.cuh (an instance per hd /
+// 16 rounded up); the instances are built in eight parts side by side
+// (flash_attention_bwd_part.cu), so that nvcc's time is spread over the
+// cores.  The Pallas
 // kernel _attn_kernel (src/repro/kernels/flash_attention/kernel.py) has
 // no backward: the JAX
 // package trains through attention with XLA's autodiff of
@@ -35,18 +36,15 @@
 // TFLOP/s) the bytes (q, k, v, dO and lse read, dQ, dK, dV written, at
 // 3.35 TB/s) bound it at the training shapes (S = T = 128, hd 32 or 40):
 // 0.0044 ms at (B, H, hd) = (16, 8, 32); at the zoo's training shapes
-// (bf16, S = T = 512-2048, hd 64-256) the operations bound it.  f32
-// inputs: every product runs in 3xTF32 (mma_tf32.cuh): each f32 operand,
-// the computed P and dS too, is split into big and small TF32 halves at
-// use (split_tf32_rz: small is left for the tensor cores to truncate),
-// which keeps f32 accuracy where one TF32 pass would not
-// (tests/test_torch_tf32.py, tests/test_torch_attention_grad.py).  bf16
-// inputs: every bf16 value is exact in TF32 and the product of two exact
-// in the f32 accumulator, so S = q k^T and dP = dO V^T take ONE pass; the
-// products with a computed f32 operand (P^T dO, dS^T q, dS K) take TWO,
-// its big and small halves against the exact input, as the bf16 forward
-// runs P V.  bf16 rows are widened to f32 as they are staged (shared
-// memory holds f32 either way), so both types share one body.  Design:
+// (bf16, S = T = 512-4608, hd 64-256) the operations bound it.  The f32
+// instances run every product in 3xTF32 (mma_tf32.cuh): each f32
+// operand, the computed P and dS too, is split into big and small TF32
+// halves at use (split_tf32_rz: small is left for the tensor cores to
+// truncate), which keeps f32 accuracy where one TF32 pass would not
+// (tests/test_torch_tf32.py, tests/test_torch_attention_grad.py).  The
+// bf16 instances have a design of their own on the bf16 tensor cores
+// (flash_attention_bwd_bf16.cuh: two launches, tiles the masks leave
+// empty skipped).  Design of the f32 instances:
 // * A block of 8 warps (hd up to 128) owns a block of up to 128 keys of
 //   one (batch, kv head), 16 keys a warp; K and V of the block stay in
 //   shared memory.
@@ -68,8 +66,7 @@
 //   drifts with its length (3.3e-4 of dK's largest value at 6,912
 //   k-steps, starcoder2's 48:4 heads at 4,608 rows), where a tile's NR
 //   k-steps and one rounded add do not.  dS^T's A fragments are read
-//   back from shared memory at each use, so that no instance spills;
-//   that costs up to 10% at the zoo's bf16 shapes (PERF.md).
+//   back from shared memory at each use, so that no instance spills.
 // * T <= 128 (every shape training runs: S = T = 128): one launch, S and
 //   dP once per (row, key).  The row sums come from the same pass: each
 //   warp reduces its 16 keys by shuffles (a reduce-scatter over the 8
@@ -106,8 +103,8 @@
 //   computes the whole S and dP (all hd columns of q, K, dO, V) and its
 //   half of dK, dV and dQ, so dK and dV take 128 registers a lane as at
 //   hd 128.  S and dP are computed once for each half in each launch
-//   (six times in all): the simplest plan that keeps f32 inputs and the
-//   accumulators on chip.  These instances always run
+//   (six times in all): the simplest plan that keeps the f32 inputs and
+//   the accumulators on chip.  These instances always run
 //   the two launches (the one-launch path would hold dQ's accumulators
 //   beside dK's and dV's and spill).
 // * No atomics: every sum runs in a fixed order, so a rerun gives
@@ -115,8 +112,9 @@
 #include "flash_attention_bwd.cuh"
 
 // rows: (B, H, S, 2) f32 workspace for the row sums, written and read
-// only on the two-launch path (T above the block's keys: 128 up to hd
-// 128, 64 above; and every call above hd 128), null otherwise.
+// only on the two-launch path (f32: T above the block's keys, 128 up to
+// hd 128, 64 above, and every call above hd 128; bf16: every call), null
+// otherwise.
 // bf16: 0 for f32 inputs and outputs, 1 for bf16 (lse stays f32).
 extern "C" int tryage_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* d_o,

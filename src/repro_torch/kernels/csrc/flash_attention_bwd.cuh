@@ -1,7 +1,8 @@
-// The attention backward kernel's body, shared by its translation units:
-// flash_attention_bwd.cu (the C entry point) and the parts of
+// The f32 attention backward kernel's body, shared by its translation
+// units: flash_attention_bwd.cu (the C entry point) and the f32 parts of
 // flash_attention_bwd_part.cu (the instances), compiled side by side.
-// The design notes are in flash_attention_bwd.cu.
+// The design notes are in flash_attention_bwd.cu; the bf16 instances
+// have a body of their own (flash_attention_bwd_bf16.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -48,10 +49,10 @@ constexpr int kMaxKD = 32;                 // hd 256
 constexpr float kNegInf = -2.3819763e38f;  // the forward's mask fill
 constexpr unsigned kFull = 0xffffffffu;
 
-// The geometry of one instance: Tin the input type, KD = hd / 8.
+// The geometry of one instance: Tin the input type (float), KD = hd / 8.
 template <typename Tin, int KD>
 struct Geo {
-  static constexpr bool kBf16 = std::is_same<Tin, __nv_bfloat16>::value;
+  static_assert(std::is_same<Tin, float>::value, "the f32 instances");
   // hd above 128: 4 warps (64 keys a block), one q/dO buffer, and the
   // output columns in two halves, one block each (see the header)
   static constexpr bool kWide = KD > 16;
@@ -83,43 +84,18 @@ struct Geo {
 };
 
 // Rows [r0, r0 + n) of one head of a (rows, heads, HD) tensor into a tile
-// of f32 rows padded to HD + 4 floats; rows at or past `lim` are zero.
-// f32 arrives by cp.async; bf16 is loaded 8 values at a time and widened
-// (exactly) on the way in, at most U loads in flight a thread: where dK
-// and dV are live, the compiler would otherwise hold many loads'
-// registers across the compute that follows, and spill.
-template <typename Tin, int KD, int THREADS, int U = 4>
+// of f32 rows padded to HD + 4 floats by cp.async; rows at or past `lim`
+// are zero.
+template <typename Tin, int KD, int THREADS>
 __device__ __forceinline__ void stage_rows(float* dst, const Tin* src, int r0,
                                            int n, int lim, size_t stride) {
   constexpr int KS = 8 * KD + 4;
-  if constexpr (std::is_same<Tin, float>::value) {
-    constexpr int kPieces = 2 * KD;  // 16-byte pieces a row
-    for (int i = threadIdx.x; i < n * kPieces; i += THREADS) {
-      const int r = i / kPieces, c = (i - r * kPieces) * 4;
-      const bool in = r0 + r < lim;
-      tryage::cp_async16(dst + r * KS + c,
-                         src + (size_t)(in ? r0 + r : 0) * stride + c, in);
-    }
-  } else {
-    constexpr int kPieces = KD;      // 8 bf16 a piece
-#pragma unroll U
-    for (int i = threadIdx.x; i < n * kPieces; i += THREADS) {
-      const int r = i / kPieces, c = (i - r * kPieces) * 8;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < lim)
-        raw = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride
-                                              + c);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        f[2 * e] = __uint_as_float(w[e] << 16);
-        f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-      }
-      float4* out = reinterpret_cast<float4*>(dst + r * KS + c);
-      out[0] = make_float4(f[0], f[1], f[2], f[3]);
-      out[1] = make_float4(f[4], f[5], f[6], f[7]);
-    }
+  constexpr int kPieces = 2 * KD;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < n * kPieces; i += THREADS) {
+    const int r = i / kPieces, c = (i - r * kPieces) * 4;
+    const bool in = r0 + r < lim;
+    tryage::cp_async16(dst + r * KS + c,
+                       src + (size_t)(in ? r0 + r : 0) * stride + c, in);
   }
 }
 
@@ -139,9 +115,8 @@ __device__ __forceinline__ void stage_row_data(float* lse_s, float* row_s,
 }
 
 // S^T = K q^T and dP^T = V dO^T, unscaled, for the warp's 16 keys of the
-// block and the tile's R rows.  Lane (g, t) holds in [j][e] key
-// 16 warp + g + 8 (e >> 1) and tile row 8 j + 2 t + (e & 1).  f32: 3xTF32;
-// bf16: every operand is exact in TF32, one pass.
+// block and the tile's R rows, in 3xTF32.  Lane (g, t) holds in [j][e]
+// key 16 warp + g + 8 (e >> 1) and tile row 8 j + 2 t + (e & 1).
 template <typename G>
 __device__ __forceinline__ void products(const float* ks, const float* vs,
                                          const float* qs, const float* dos,
@@ -160,56 +135,27 @@ __device__ __forceinline__ void products(const float* ks, const float* vs,
   for (int kk = 0; kk < G::HD / 8; ++kk) {
     const float* k0 = kr + 8 * kk;
     const float* v0 = vr + 8 * kk;
-    if constexpr (G::kBf16) {
-      const uint32_t ak[4] = {__float_as_uint(k0[0]),
-                              __float_as_uint(k0[8 * KS]),
-                              __float_as_uint(k0[4]),
-                              __float_as_uint(k0[8 * KS + 4])};
-      const uint32_t av[4] = {__float_as_uint(v0[0]),
-                              __float_as_uint(v0[8 * KS]),
-                              __float_as_uint(v0[4]),
-                              __float_as_uint(v0[8 * KS + 4])};
+    const Split ak[4] = {split_tf32_rz(k0[0]), split_tf32_rz(k0[8 * KS]),
+                         split_tf32_rz(k0[4]), split_tf32_rz(k0[8 * KS + 4])};
+    const Split av[4] = {split_tf32_rz(v0[0]), split_tf32_rz(v0[8 * KS]),
+                         split_tf32_rz(v0[4]), split_tf32_rz(v0[8 * KS + 4])};
 #pragma unroll
-      for (int j = 0; j < NR; ++j) {
-        const float* qr = qs + (8 * j + g) * KS + 8 * kk + t;
-        const float* dr = dos + (8 * j + g) * KS + 8 * kk + t;
-        tryage::mma_tf32(p[j], ak[0], ak[1], ak[2], ak[3],
-                         __float_as_uint(qr[0]), __float_as_uint(qr[4]));
-        tryage::mma_tf32(dp[j], av[0], av[1], av[2], av[3],
-                         __float_as_uint(dr[0]), __float_as_uint(dr[4]));
-      }
-    } else {
-      const Split ak[4] = {split_tf32_rz(k0[0]), split_tf32_rz(k0[8 * KS]),
-                           split_tf32_rz(k0[4]),
-                           split_tf32_rz(k0[8 * KS + 4])};
-      const Split av[4] = {split_tf32_rz(v0[0]), split_tf32_rz(v0[8 * KS]),
-                           split_tf32_rz(v0[4]),
-                           split_tf32_rz(v0[8 * KS + 4])};
-#pragma unroll
-      for (int j = 0; j < NR; ++j) {
-        const float* qr = qs + (8 * j + g) * KS + 8 * kk + t;
-        const float* dr = dos + (8 * j + g) * KS + 8 * kk + t;
-        const Split bq[2] = {split_tf32_rz(qr[0]), split_tf32_rz(qr[4])};
-        const Split bd[2] = {split_tf32_rz(dr[0]), split_tf32_rz(dr[4])};
-        tryage::mma_3xtf32(p[j], ak, bq);
-        tryage::mma_3xtf32(dp[j], av, bd);
-      }
+    for (int j = 0; j < NR; ++j) {
+      const float* qr = qs + (8 * j + g) * KS + 8 * kk + t;
+      const float* dr = dos + (8 * j + g) * KS + 8 * kk + t;
+      const Split bq[2] = {split_tf32_rz(qr[0]), split_tf32_rz(qr[4])};
+      const Split bd[2] = {split_tf32_rz(dr[0]), split_tf32_rz(dr[4])};
+      tryage::mma_3xtf32(p[j], ak, bq);
+      tryage::mma_3xtf32(dp[j], av, bd);
     }
   }
 }
 
-// d += A B for A computed in f32 (split) and B an input: 3xTF32 for f32
-// inputs, two passes for bf16 ones (B exact in TF32).
-template <bool kBf16>
+// d += A B for A computed in f32 (split) and B an input, in 3xTF32.
 __device__ __forceinline__ void mma_in(float (&d)[4], const Split (&a)[4],
                                        float b0, float b1) {
-  if constexpr (kBf16) {
-    const uint32_t b[2] = {__float_as_uint(b0), __float_as_uint(b1)};
-    tryage::mma_2xtf32(d, a, b);
-  } else {
-    const Split b[2] = {split_tf32_rz(b0), split_tf32_rz(b1)};
-    tryage::mma_3xtf32(d, a, b);
-  }
+  const Split b[2] = {split_tf32_rz(b0), split_tf32_rz(b1)};
+  tryage::mma_3xtf32(d, a, b);
 }
 
 // Two floats of shared memory, loaded anew at every call: the compiler
@@ -435,27 +381,17 @@ __device__ __forceinline__ void dq_tile(const float* ds_s, const float* ks,
       // known true at compile time but for the last n-tile of an uneven
       // split: a branch would keep the steps from interleaving
       if (m + 1 < G::NQ || G::KO % G::NG == 0 || n < G::KO) {
-        const float b0 = k0[8 * (n0 + n)];
-        const float b1 = k0[KS + 8 * (n0 + n)];
-        if constexpr (G::kBf16) {
-          const uint32_t kb[2] = {__float_as_uint(b0), __float_as_uint(b1)};
-          tryage::mma_2xtf32_sep(acc[m], sa, kb);
-        } else {
-          const Split kb[2] = {split_tf32_rz(b0), split_tf32_rz(b1)};
-          tryage::mma_3xtf32_sep(acc[m], sa, kb);
-        }
+        const Split kb[2] = {split_tf32_rz(k0[8 * (n0 + n)]),
+                             split_tf32_rz(k0[KS + 8 * (n0 + n)])};
+        tryage::mma_3xtf32_sep(acc[m], sa, kb);
       }
     }
   }
 }
 
-// Two values into `out` in the outputs' type.
-template <typename Tin>
-__device__ __forceinline__ void store2(Tin* out, float x, float y) {
-  if constexpr (std::is_same<Tin, float>::value)
-    *reinterpret_cast<float2*>(out) = make_float2(x, y);
-  else
-    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(x, y);
+// Two values into `out`.
+__device__ __forceinline__ void store2(float* out, float x, float y) {
+  *reinterpret_cast<float2*>(out) = make_float2(x, y);
 }
 
 // The first output n-tile of column half `half`.  An odd KD's halves
@@ -533,15 +469,13 @@ flash_attention_bwd_kernel(Args a) {
                                BK, a.T, kv_stride);
   stage_rows<Tin, KD, THREADS>(vs, static_cast<const Tin*>(a.v) + kv_off, kb0,
                                BK, a.T, kv_stride);
-  // q and dO tiles are staged while dK and dV are live: one bf16 load in
-  // flight a thread
   auto stage = [&](int it, int buf) {
     const int h = kvh * group + it / n_qt, q0 = (it % n_qt) * R;
     const size_t q_off = ((size_t)b * a.S * a.H + h) * HD;
-    stage_rows<Tin, KD, THREADS, 1>(sm + G::kQ + buf * R * KS, q + q_off, q0,
-                                    R, a.S, q_stride);
-    stage_rows<Tin, KD, THREADS, 1>(sm + G::kDO + buf * R * KS, d_o + q_off,
-                                    q0, R, a.S, q_stride);
+    stage_rows<Tin, KD, THREADS>(sm + G::kQ + buf * R * KS, q + q_off, q0, R,
+                                 a.S, q_stride);
+    stage_rows<Tin, KD, THREADS>(sm + G::kDO + buf * R * KS, d_o + q_off, q0,
+                                 R, a.S, q_stride);
     stage_row_data<THREADS>(sm + G::kLse + buf * R, sm + G::kRow + buf * 2 * R,
                             a.lse, a.rows, (size_t)b * a.H + h, q0, R, a.S);
   };
@@ -582,7 +516,7 @@ flash_attention_bwd_kernel(Args a) {
     // dV += P^T dO over the tile, then dK += dS^T q: the 8-row step j is
     // a k-step, A column t is row 2t and column t + 4 row 2t + 1 (see the
     // header).  Two loops, not one: with both A fragments live at once,
-    // bf16's 16 n-tiles (hd 128 and 256) spill beside dK and dV.  Each
+    // 16 n-tiles (hd 128 and 256) spilled beside dK and dV.  Each
     // n-tile's NR k-steps run in a fresh accumulator, then added to dV
     // or dK: the tensor cores' f32 accumulate truncates toward zero, so
     // one chain over every tile of a long sequence drifts (at
@@ -602,7 +536,7 @@ flash_attention_bwd_kernel(Args a) {
         const Split ap[4] = {split_tf32_rz(p[j][0]), split_tf32_rz(p[j][2]),
                              split_tf32_rz(p[j][1]), split_tf32_rz(p[j][3])};
         const float* dr = dos + (8 * j + 2 * t) * KS + g;
-        mma_in<G::kBf16>(acc, ap, dr[c], dr[KS + c]);
+        mma_in(acc, ap, dr[c], dr[KS + c]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv[n][e] += acc[e];
@@ -618,7 +552,7 @@ flash_attention_bwd_kernel(Args a) {
         const Split as[4] = {split_tf32_rz(x.x), split_tf32_rz(y.x),
                              split_tf32_rz(x.y), split_tf32_rz(y.y)};
         const float* qr = qs + (8 * j + 2 * t) * KS + g;
-        mma_in<G::kBf16>(acc, as, qr[c], qr[KS + c]);
+        mma_in(acc, as, qr[c], qr[KS + c]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[n][e] += acc[e];

@@ -1,7 +1,7 @@
 // Device helpers shared by the tensor-core kernels (flash_attention.cu,
 // flash_attention_bwd.cu, mlstm_scan.cu, mlstm_scan_bwd.cu): f32-exact
-// products on the TF32 tensor cores (3xTF32, or two passes where one
-// operand is a bf16 value and so exact in TF32), and cp.async staging.
+// products on the TF32 tensor cores (3xTF32), and cp.async staging (the
+// bf16 attention kernels' too).
 //
 // 3xTF32: an f32 operand x is split into big = tf32(x) and
 // small = tf32(x - big), each rounded as cvt.rna.tf32.f32 rounds (to
@@ -84,24 +84,6 @@ __device__ __forceinline__ void mma_3xtf32_sep(float (&d)[3][4],
   mma_tf32(d[1], a[0].big, a[1].big, a[2].big, a[3].big, b[0].small,
            b[1].small);
   mma_tf32(d[2], a[0].big, a[1].big, a[2].big, a[3].big, b[0].big, b[1].big);
-}
-
-// d += A B for A split and B exact in TF32 (a bf16 value): two passes,
-// the small term first; the dropped one is A's small half against B's
-// nothing.
-__device__ __forceinline__ void mma_2xtf32(float (&d)[4], const Split (&a)[4],
-                                           const uint32_t (&b)[2]) {
-  mma_tf32(d, a[0].small, a[1].small, a[2].small, a[3].small, b[0], b[1]);
-  mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0], b[1]);
-}
-
-// The same with each pass in its own accumulator of mma_3xtf32_sep's
-// three (d[1] is left as it is), so sep_sum reads it.
-__device__ __forceinline__ void mma_2xtf32_sep(float (&d)[3][4],
-                                               const Split (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  mma_tf32(d[0], a[0].small, a[1].small, a[2].small, a[3].small, b[0], b[1]);
-  mma_tf32(d[2], a[0].big, a[1].big, a[2].big, a[3].big, b[0], b[1]);
 }
 
 __device__ __forceinline__ float sep_sum(const float (&d)[3][4], int e) {

@@ -18,22 +18,25 @@ may set them).
 
 ``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
 which has no Pallas counterpart: the JAX package differentiates its XLA
-attention; f32 or bf16, head_dim up to 256, the five products in 3xTF32
-for f32 and in one or two TF32 passes for bf16, one launch up to
-``block_keys(hd)`` keys, two above); ``flash_attention`` runs forward
-and backward kernels as one ``torch.autograd.Function`` when an input
+attention; f32 or bf16, head_dim up to 256; f32: the five products in
+3xTF32, one launch up to ``block_keys(hd)`` keys, two above; bf16
+(``csrc/flash_attention_bwd_bf16.cuh``): on the bf16 tensor cores,
+always two launches over ``backward_tiles``, the tiles the masks leave
+empty skipped, ``walked_tiles``); ``flash_attention`` runs forward and
+backward kernels as one ``torch.autograd.Function`` when an input
 requires grad.
 
 Bound on the H100: at the router's shapes the f32 operations (4*S*T*hd
 per head, about 4 us for a router layer at B=32 on the CUDA cores); at
-the zoo's bf16 prefill shapes the tensor cores' operations.  The kernel
-runs both products on the TF32 tensor cores: 3xTF32 for f32 inputs,
-which keeps f32 accuracy; for bf16 inputs (exact in TF32) one pass for
-q k^T and two for P V (P stays f32).  The online softmax is in
-registers and K/V tiles are staged in shared memory with cp.async, so
-each block reads K and V once.  q, k, v are f32 or bf16 (all one type;
-the output takes it), head_dim a multiple of 8 up to 256; the backward
-takes the same.
+the zoo's bf16 prefill shapes the tensor cores' operations.  For f32
+inputs the kernel runs both products on the TF32 tensor cores in
+3xTF32, which keeps f32 accuracy; bf16 inputs have instances of their
+own (``csrc/flash_attention_bf16.cu``) on the bf16 tensor cores: q k^T
+in one pass, P V in two (P's bf16 pieces against the exact V).  The
+online softmax is in registers and K/V tiles are staged in shared
+memory with cp.async, so each block reads K and V once.  q, k, v are
+f32 or bf16 (all one type; the output takes it), head_dim a multiple of
+8 up to 256; the backward takes the same.
 """
 
 from __future__ import annotations
@@ -53,18 +56,22 @@ WARPS = (1, 2, 4)     # warps a forward block can hold (kMaxWarps = 4)
 SMS = 132             # the H100's SMs (kSMs in csrc/flash_attention.cuh)
 
 
-def column_splits(hd: int) -> int:
-    """Blocks that share a query tile's output columns (``Geometry::NC``
-    in ``csrc/flash_attention.cuh``): 1 up to head_dim 128, else 2."""
+def column_splits(hd: int, bf16: bool = False) -> int:
+    """Blocks that share a query tile's output columns: the f32
+    instances' ``Geometry::NC`` in ``csrc/flash_attention.cuh``, 1 up to
+    head_dim 128, else 2; the bf16 instances (``flash_attention_bf16.cu``)
+    hold every column in one block."""
+    if bf16:
+        return 1
     kd = hd // 8
     ko = kd if kd <= 16 else (kd + 1) // 2
     return -(-kd // ko)
 
 
-def default_warps(B: int, S: int, H: int, hd: int) -> int:
+def default_warps(B: int, S: int, H: int, hd: int, bf16: bool = False) -> int:
     """The forward kernel's own choice of warps a block (``warps`` 0):
     the most of 1, 2 or 4 that still gives every SM a block."""
-    row_tiles = B * H * column_splits(hd) * -(-S // 16)
+    row_tiles = B * H * column_splits(hd, bf16) * -(-S // 16)
     warps = WARPS[-1]
     while warps > 1 and -(-row_tiles // warps) < SMS:
         warps //= 2
@@ -72,9 +79,11 @@ def default_warps(B: int, S: int, H: int, hd: int) -> int:
 
 
 def forward_plan(B: int, S: int, H: int, hd: int,
-                 warps: int | None = None) -> dict:
-    """The forward kernel's launch geometry: ``warps`` a block (16 query
-    rows each), unset: the launch-config table's entry at batch ``B``
+                 warps: int | None = None, bf16: bool = False) -> dict:
+    """The forward kernel's launch geometry: ``warps`` a block, 16 query
+    rows each (in the bf16 instances a pair of warps holds 16 rows, so a
+    block has twice as many warps), unset: the launch-config table's
+    entry at batch ``B``
     (``kernels.tiles``) where it is one of ``WARPS``, else 0, the
     kernel's own choice (``default_warps``).  ``launch_warps`` is what
     the wrapper passes to the kernel, ``warps`` what runs."""
@@ -85,9 +94,9 @@ def forward_plan(B: int, S: int, H: int, hd: int,
     elif warps not in (0, *WARPS):
         raise ValueError(f"flash_attention: warps {warps} not in "
                          f"{(0, *WARPS)}")
-    eff = warps or default_warps(B, S, H, hd)
+    eff = warps or default_warps(B, S, H, hd, bf16)
     return {"launch_warps": warps, "warps": eff,
-            "grid": (-(-S // (16 * eff)), B * H, column_splits(hd))}
+            "grid": (-(-S // (16 * eff)), B * H, column_splits(hd, bf16))}
 
 
 def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -124,17 +133,61 @@ def backward_cost(q, k, causal, window) -> tuple[int, int]:
 
 
 def block_keys(hd: int) -> int:
-    """Keys of one block of the backward kernel
+    """Keys of one block of the f32 backward kernel
     (``csrc/flash_attention_bwd.cuh`` ``Geo::BK``): 128 up to head_dim
     128, 64 above."""
     return 128 if hd <= 128 else 64
 
 
-def backward_launches(T: int, hd: int) -> int:
-    """Kernel launches of one backward call: one when every key fits
-    one block (head_dim up to 128), else two, the first writing each
-    row's sums to a (B, H, S, 2) workspace."""
+def backward_launches(T: int, hd: int, bf16: bool = False) -> int:
+    """Kernel launches of one backward call: f32, one when every key
+    fits one block (head_dim up to 128), else two, the first writing
+    each row's sums to a (B, H, S, 2) workspace; bf16, always those
+    two."""
+    if bf16:
+        return 2
     return 1 if T <= block_keys(hd) and hd <= 128 else 2
+
+
+def backward_tiles(hd: int) -> dict:
+    """The bf16 backward's tiles (``csrc/flash_attention_bwd_bf16.cuh``
+    ``Bf16Bwd``), (query rows, keys) of each launch: the dQ launch's
+    tiles of 64 rows against key blocks of 64 keys, then the dK/dV
+    launch's blocks of 64 keys (32 above head_dim 128) against tiles of
+    64 rows."""
+    wide = -(-hd // 16) * 16 > 128
+    return {"dq": (64, 64), "kv": (64, 32 if wide else 64)}
+
+
+def key_range(row_lo: int, row_hi: int, T: int, causal: bool,
+              window: int) -> tuple[int, int]:
+    """Keys [lo, hi) that some row of [row_lo, row_hi] may see under the
+    masks: the kernels' rule for the tiles they skip, by which a tile
+    whose rows include one that sees no key at all (past T with a
+    window: its P is uniform over every key) keeps every key."""
+    lo, hi = 0, T
+    if window <= 0 or row_hi - window + 1 <= T - 1:
+        if causal:
+            hi = min(T, row_hi + 1)
+        if window > 0:
+            lo = max(0, row_lo - window + 1)
+    return lo, hi
+
+
+def walked_tiles(S: int, T: int, rows: int, keys: int, causal: bool,
+                 window: int) -> list[tuple[int, int]]:
+    """The (query tile, key block) pairs, tiles of ``rows`` queries and
+    blocks of ``keys`` keys, that the bf16 kernels compute: those where
+    ``key_range`` of the tile's rows meets the block.  The forward takes
+    (16 x warps, 64 or 32 above head_dim 128), the backward's launches
+    ``backward_tiles``."""
+    out = []
+    for qt in range(-(-S // rows)):
+        lo, hi = key_range(qt * rows, min(S, qt * rows + rows) - 1, T,
+                           causal, window)
+        out += [(qt, kb) for kb in range(-(-T // keys))
+                if lo <= min(T, kb * keys + keys) - 1 and kb * keys < hi]
+    return out
 
 
 def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -196,7 +249,7 @@ def _forward(q, k, v, causal, window, softcap, with_lse, warps=None):
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     _check_head_dim(hd)
-    plan = forward_plan(B, S, H, hd, warps)
+    plan = forward_plan(B, S, H, hd, warps, q.dtype == torch.bfloat16)
     if q.device.type != "meta":
         q, k, v = _kernel_inputs(q, k, v)
     o = torch.empty_like(q)
@@ -258,7 +311,8 @@ def _backward(q, k, v, lse, do, causal, window, softcap):
     q, k, v, do, lse = _kernel_inputs(q, k, v, do, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rows = (torch.empty(B, H, S, 2, dtype=torch.float32, device=q.device)
-            if backward_launches(T, hd) == 2 else None)
+            if backward_launches(T, hd, q.dtype == torch.bfloat16) == 2
+            else None)
     build.launch(
         "tryage_flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -19,7 +19,9 @@ back to the default on one the kernel cannot take):
 * ``router_score`` / ``router_cascade``: ``k_groups``, the hidden
   layer's split of each dot product over a block's threads (the thread
   count follows from it);
-* ``flash_attention``: ``warps`` per block, 1, 2 or 4;
+* ``flash_attention``: ``warps`` per block, 1, 2 or 4 (16 query rows
+  each; in the bf16 instances above head_dim 128 a pair of warps holds
+  the 16 rows, so the block has twice as many);
 * ``mlstm_scan``: ``chunk``, the forward's chunk length L (at most 64,
   dividing S); the backward takes the forward's chunk.
 

@@ -17,8 +17,12 @@ over the key blocks past it), dS = P (dP - D) with the softcap factor,
 masked scores given no gradient, a fully masked row's uniform P, and
 the GQA sum over query heads) against torch autograd, also from a
 log-sum-exp put off per row, so that a fault of the algorithm shows
-before the card.  The emulation runs its five products in f32, and in
-the TF32 rounding of the tensor cores (``test_torch_tf32.py``).
+before the card; and of the bf16 kernel's (``bf16=True``:
+``csrc/flash_attention_bwd_bf16.cuh``, two launches over their own
+tiles, computing only the tiles ``ops.walked_tiles`` names).  The
+emulation runs its five products in f32, in the TF32 rounding of the
+tensor cores, and in the bf16 pieces of the bf16 kernels
+(``test_torch_tf32.py``).
 
 Tolerance: each gradient's max abs error within 1e-5 of its largest
 magnitude in f32 (sums in other orders); with the products in 3xTF32
@@ -248,47 +252,60 @@ def _grads(p, dpt, dcap, dead, inv, dd):
 
 
 def _emulated_bwd(q, k, v, lse, do, causal, window, softcap,
-                  mm=torch.matmul):
+                  mm=torch.matmul, bf16=False):
     """The backward kernel's order of work, with its five products
-    through ``mm``.  Up to ``block_keys(hd)`` keys at head_dim up to
-    128 (one launch): per (b, kv
-    head), per query head of the group and tile of rows, S^T and dP^T
+    through ``mm``.  f32 (``csrc/flash_attention_bwd.cu``): up to
+    ``block_keys(hd)`` keys at head_dim up to 128 (one launch): per (b,
+    kv head), per query head of the group and tile of rows, S^T and dP^T
     once, the row sums from that same pass, dV += P^T dO, dK += dS^T q,
     and dQ of the tile, complete.  Past it (two launches): per (b, h,
     tile) the key blocks for the row sums, then again for dS and dQ;
     then per (b, kv head, key block) the tiles as above with the row
-    sums read."""
+    sums read.  bf16 (``csrc/flash_attention_bwd_bf16.cuh``): always
+    the two launches, each with its own tiles (``backward_tiles``), and
+    only the (tile, block) pairs that ``walked_tiles`` names."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, torch.tensor(1 / math.sqrt(hd))
-    R, NB = (64 if hd <= 64 else 32), fa_ops.block_keys(hd)
     masks = dict(causal=causal, window=window, softcap=softcap)
-    whole = fa_ops.backward_launches(T, hd) == 1
-    n_kb = -(-T // NB)
+    if bf16:
+        (QR, QK), (KR, KK) = (fa_ops.backward_tiles(hd)[n]
+                              for n in ("dq", "kv"))
+        walk = {n: set(fa_ops.walked_tiles(S, T, r, c, causal, window))
+                for n, (r, c) in (("dq", (QR, QK)), ("kv", (KR, KK)))}
+    else:
+        R, NB = (64 if hd <= 64 else 32), fa_ops.block_keys(hd)
+        (QR, QK), (KR, KK) = (R, NB), (R, NB)
+        every = {(qt, kb) for qt in range(-(-S // R))
+                 for kb in range(-(-T // NB))}
+        walk = {"dq": every, "kv": every}
+    whole = fa_ops.backward_launches(T, hd, bf16) == 1
     dq, dk, dv = (torch.zeros_like(a) for a in (q, k, v))
+    inv_all, dd_all = torch.ones(B, H, S), torch.zeros(B, H, S)
 
     def pad(x, n):  # rows past the end read as zero
         return torch.cat([x, x.new_zeros(n - x.shape[0], *x.shape[1:])])
 
-    def tile(b, h, q0):
+    def tile(b, h, q0, R):
         rows = torch.arange(q0, q0 + R)
         lse_t = pad(lse[b, h, q0:q0 + R], R)
         return (rows, pad(q[b, q0:q0 + R, h], R), pad(do[b, q0:q0 + R, h], R),
                 lse_t)
 
-    def block(b, kvh, k0):
+    def block(b, kvh, k0, NB):
         return (torch.arange(k0, k0 + NB), pad(k[b, k0:k0 + NB, kvh], NB),
                 pad(v[b, k0:k0 + NB, kvh], NB))
 
-    stats = {}
     if not whole:                                       # the dQ launch
         for b in range(B):
             for h in range(H):
-                for q0 in range(0, S, R):
-                    rows, qt, dot, lse_t = tile(b, h, q0)
+                for q0 in range(0, S, QR):
+                    rows, qt, dot, lse_t = tile(b, h, q0, QR)
+                    k0s = [k0 for k0 in range(0, T, QK)
+                           if (q0 // QR, k0 // QK) in walk["dq"]]
                     ps = pd = 0
-                    for k0 in range(0, T, NB):
-                        keys, kb, vb = block(b, h // G, k0)
+                    for k0 in k0s:
+                        keys, kb, vb = block(b, h // G, k0, QK)
                         p, dpt, _, dead = _block_scores(
                             qt, dot, kb, vb, rows, keys, lse_t, S, T, scale,
                             masks, mm)
@@ -298,39 +315,44 @@ def _emulated_bwd(q, k, v, lse, do, causal, window, softcap,
                                       1.0 / torch.where(live, ps, 1.0))
                     dd = torch.where(live, pd / torch.where(live, ps, 1.0),
                                      0.0)
-                    stats[b, h, q0] = inv, dd
+                    n = min(QR, S - q0)
+                    inv_all[b, h, q0:q0 + n], dd_all[b, h, q0:q0 + n] = (
+                        inv[:n], dd[:n])
                     acc = 0
-                    for k0 in range(0, T, NB):
-                        keys, kb, vb = block(b, h // G, k0)
+                    for k0 in k0s:
+                        keys, kb, vb = block(b, h // G, k0, QK)
                         p, dpt, dcap, dead = _block_scores(
                             qt, dot, kb, vb, rows, keys, lse_t, S, T, scale,
                             masks, mm)
                         _, dst = _grads(p, dpt, dcap, dead, inv, dd)
                         acc = acc + mm(dst.T, kb)
-                    n = min(R, S - q0)
                     dq[b, q0:q0 + n, h] = (acc * scale)[:n]
     for b in range(B):                                  # the dK/dV launch
         for kvh in range(KV):
-            for k0 in range(0, T, NB):
-                keys, kb, vb = block(b, kvh, k0)
+            for k0 in range(0, T, KK):
+                keys, kb, vb = block(b, kvh, k0, KK)
                 ak = av = 0
                 for h in range(kvh * G, kvh * G + G):
-                    for q0 in range(0, S, R):
-                        rows, qt, dot, lse_t = tile(b, h, q0)
+                    for q0 in range(0, S, KR):
+                        if (q0 // KR, k0 // KK) not in walk["kv"]:
+                            continue
+                        rows, qt, dot, lse_t = tile(b, h, q0, KR)
                         p, dpt, dcap, dead = _block_scores(
                             qt, dot, kb, vb, rows, keys, lse_t, S, T, scale,
                             masks, mm)
-                        inv, dd = (_row_stats(p, dpt, dead) if whole
-                                   else stats[b, h, q0])
+                        inv, dd = (_row_stats(p, dpt, dead) if whole else (
+                            pad(inv_all[b, h, q0:q0 + KR], KR),
+                            pad(dd_all[b, h, q0:q0 + KR], KR)))
                         pb, dst = _grads(p, dpt, dcap, dead, inv, dd)
                         av = av + mm(pb, dot)
                         ak = ak + mm(dst, qt)
                         if whole:
-                            n = min(R, S - q0)
+                            n = min(KR, S - q0)
                             dq[b, q0:q0 + n, h] = (mm(dst.T, kb) * scale)[:n]
-                n = min(NB, T - k0)
-                dk[b, k0:k0 + n, kvh] = (ak * scale)[:n]
-                dv[b, k0:k0 + n, kvh] = av[:n]
+                n = min(KK, T - k0)
+                if torch.is_tensor(ak):
+                    dk[b, k0:k0 + n, kvh] = (ak * scale)[:n]
+                    dv[b, k0:k0 + n, kvh] = av[:n]
     return dq, dk, dv
 
 
@@ -347,15 +369,17 @@ PATH_CASES = [
 ]
 
 
-def _grad_case(case):
-    """Inputs, masks, autograd's gradients of the plain version, and the
-    forward's log-sum-exp as is and put off by up to 1e-3 per row (the
-    card's 3xTF32 forward against the backward's recompute, much
-    magnified): the row sums renormalise P, so both give the same
-    gradients."""
+def _grad_case(case, bf16=False):
+    """Inputs (with ``bf16``, rounded to bf16 values), masks, autograd's
+    gradients of the plain version, and the forward's log-sum-exp as is
+    and put off by up to 1e-3 per row (the card's 3xTF32 forward against
+    the backward's recompute, much magnified): the row sums renormalise
+    P, so both give the same gradients."""
     B, S, T, H, KV, hd, causal, window, softcap = case
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, KV, hd,
                                                          seed=3))
+    if bf16:
+        q, k, v, do = (a.bfloat16().float() for a in (q, k, v, do))
     masks = dict(causal=causal, window=window, softcap=softcap)
     o, lse = _forward_lse(q, k, v, **masks)
     _close(o.numpy(), fa_ops.attention_plain(q, k, v, **masks).numpy(), "o")
@@ -378,22 +402,90 @@ def test_backward_algorithm_matches_autograd(case):
             _close(g.numpy(), w.numpy(), name)
 
 
-@pytest.mark.parametrize("scheme", ["3xtf32", "3xtf32_rz", "1xtf32"])
+# hd 256 (the bf16 backward's blocks of 32 keys in the dK/dV launch),
+# causal and windowed, past several tiles of each
+WIDE_PATH_CASES = [
+    (1, 150, 150, 2, 1, 256, True, 0, 0.0),
+    (1, 150, 150, 2, 1, 256, True, 40, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", CASES + [
+    (2, 40, 37, 4, 2, 24, True, 0, 0.0),     # ragged tiles both ways
+    (1, 70, 70, 2, 1, 8, False, 9, 1.5),
+] + PATH_CASES + WIDE_PATH_CASES)
+def test_backward_bf16_walk_matches_autograd(case):
+    """The bf16 kernel's order of work, which computes only the tiles
+    ``walked_tiles`` names (the others are masked whole), gives
+    autograd's gradients: the rule keeps every tile of a row that sees
+    no key (``(1, 20, 8, ...)``, ``(1, 300, 140, ...)``)."""
+    (q, k, v, do), masks, want, lses = _grad_case(case)
+    for lse_in in lses:
+        got = _emulated_bwd(q, k, v, lse_in, do, **masks, bf16=True)
+        for name, g, w in zip("qkv", got, want):
+            _close(g.numpy(), w.numpy(), name)
+
+
+@pytest.mark.parametrize("scheme", ["3xtf32", "3xtf32_rz", "1xtf32",
+                                    "bf16x2", "bf16x1"])
 @pytest.mark.parametrize("case", CASES + PATH_CASES)
 def test_backward_tf32_within_tolerance(case, scheme):
     """The kernel's order of work with its products (P and dS among their
     operands) in 3xTF32 holds the card's gate, with small rounded and
-    truncated (the kernel's split); in one TF32 pass it misses it."""
-    (q, k, v, do), masks, want, lses = _grad_case(case)
+    truncated (the kernel's split); in one TF32 pass it misses it.  The
+    bf16 kernel's, on bf16 inputs, with P and dS in two bf16 pieces holds
+    the card's bf16 gate (the gradients rounded to bf16 within one bf16
+    ulp of the f32 gradient rounded, plus the f32 gate); in one piece it
+    misses it."""
+    bf16 = scheme.startswith("bf16")
+    (q, k, v, do), masks, want, lses = _grad_case(case, bf16)
     tol = chip_smoke.ATTN_GRAD_REL_TOL
     for lse_in in lses:
-        got = _emulated_bwd(q, k, v, lse_in, do, **masks, mm=MMS[scheme])
+        got = _emulated_bwd(q, k, v, lse_in, do, **masks, mm=MMS[scheme],
+                            bf16=bf16)
+        if bf16:
+            ok = all(bool(((g.bfloat16().float() - w).abs() <= chip_smoke
+                           .bf16_ulp(torch, w.bfloat16().float().abs())
+                           + tol * w.abs().max()).all())
+                     for g, w in zip(got, want))
+            assert ok == (scheme == "bf16x2"), scheme
+            continue
         rel = max(float((g - w).abs().max()) / float(w.abs().max())
                   for g, w in zip(got, want))
         if scheme.startswith("3x"):
             assert rel <= tol, rel
         else:
             assert rel > tol, rel
+
+
+@pytest.mark.parametrize("case", WIDE_PATH_CASES + [
+    (1, 300, 140, 2, 2, 256, False, 3, 0.0),   # rows 142.. see no key
+])
+def test_bf16_walked_tiles_match_the_mask(case):
+    """At hd 256, per launch of the bf16 backward and for the forward's
+    tiles: the (tile, block) pairs the kernels skip are exactly those
+    the mask leaves no pair in, where no row of the tile is one that
+    sees no key; a tile with such a row keeps every block."""
+    B, S, T, H, KV, hd, causal, window, softcap = case
+    ok = _allowed(S, T, causal, window)
+    dead = ~ok.any(1)
+    tilings = [fa_ops.backward_tiles(hd)[n] for n in ("dq", "kv")]
+    tilings.append((64, 64))                  # the forward at 4 warps
+    for rows, keys in tilings:
+        walked = set(fa_ops.walked_tiles(S, T, rows, keys, causal, window))
+        want, n_all = set(), 0
+        for qt in range(-(-S // rows)):
+            r = slice(qt * rows, qt * rows + rows)
+            for kb in range(-(-T // keys)):
+                n_all += 1
+                if ok[r, kb * keys:kb * keys + keys].any() or dead[r].any():
+                    want.add((qt, kb))
+        assert walked == want, (rows, keys, sorted(walked ^ want))
+        if causal:                                     # some are skipped
+            assert n_all - len(walked) > 0, (rows, keys)
+        for qt in range(-(-S // rows)):
+            if dead[qt * rows:qt * rows + rows].any():
+                assert all((qt, kb) in walked for kb in range(-(-T // keys)))
 
 
 def _rz32(x):

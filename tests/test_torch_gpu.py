@@ -172,8 +172,8 @@ def bf16_ulp(x):
 def test_flash_attention_kernel_bf16_and_wide_heads(B, S, T, H, KV, hd,
                                                     causal, window, softcap,
                                                     dtype):
-    """bf16 inputs and head_dim up to 256 (two column halves above 128):
-    bf16 within one bf16 ulp of each element plus the f32 tolerance (the
+    """bf16 inputs and head_dim up to 256 (f32: two column halves above
+    128; bf16: every column in one block): bf16 within one bf16 ulp of each element plus the f32 tolerance (the
     kernel's f32 result is within 2e-5 of the plain version's before
     each rounds to bf16); f32 at the f32 tolerances."""
     _card()

@@ -13,9 +13,18 @@ kernels keep the tolerances of their f32 predecessors.
 ``csrc/flash_attention_bwd.cu`` leaves small as the f32 difference
 x - big, which the tensor cores truncate to TF32 (``tf32_rz``,
 ``mm_3xtf32_rz``; its gate is held in ``test_torch_attention_grad.py``).
+The bf16 attention kernels (``csrc/flash_attention_bf16.cu``,
+``csrc/flash_attention_bwd_bf16.cuh``) run on the bf16 tensor cores: a
+product of two bf16 inputs in one pass, a product with a computed f32
+operand (P, dS) in that operand's bf16 pieces (``bf16_pieces``,
+``split_bf16`` of ``csrc/mma_bf16.cuh``) against the exact input.  Two
+pieces hold the card's bf16 gates (one bf16 ulp plus ``ATTN_TOL`` for
+the forward, plus ``ATTN_GRAD_REL_TOL`` of the largest for the
+backward); one piece fails them.
 No card needed.
 """
 
+import functools
 import importlib.util
 import math
 from pathlib import Path
@@ -65,7 +74,45 @@ def mm_1xtf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-MMS = {"3xtf32": mm_3xtf32, "3xtf32_rz": mm_3xtf32_rz, "1xtf32": mm_1xtf32}
+def bf16(x):
+    """x rounded to bf16 (to nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_pieces(x, n):
+    """x's first n bf16 pieces, each rounded to nearest: hi = bf16(x),
+    lo = bf16(x - hi), ... (two: ``split_bf16``)."""
+    out, rest = [], x
+    for _ in range(n):
+        out.append(bf16(rest))
+        rest = rest - out[-1]
+    return out
+
+
+def mm_bf16(a, b, pieces):
+    """a @ b on the bf16 tensor cores as the bf16 kernels run it: a (a
+    computed f32 operand, or an exact bf16 input, whose pieces past the
+    first are zero) in ``pieces`` bf16 pieces, each against b (a bf16
+    input, exact), the small piece first, summed in f32."""
+    out = None
+    for p in reversed(bf16_pieces(a, pieces)):
+        t = p @ bf16(b)
+        out = t if out is None else out + t
+    return out
+
+
+MMS = {"3xtf32": mm_3xtf32, "3xtf32_rz": mm_3xtf32_rz, "1xtf32": mm_1xtf32,
+       "bf16x2": functools.partial(mm_bf16, pieces=2),
+       "bf16x1": functools.partial(mm_bf16, pieces=1)}
+
+
+def bf16_ulps_past(got, ref, tol):
+    """The largest miss of ``chip_smoke.py``'s bf16 gates, in bf16 ulps
+    of the larger magnitude: (|got - ref| - tol) / ulp, at most 1 passes."""
+    diff = (got.float() - ref.float()).abs()
+    ulp = chip_smoke.bf16_ulp(torch, torch.maximum(got.float().abs(),
+                                                   ref.float().abs()))
+    return float(((diff - tol).clamp_min(0) / ulp).max())
 
 
 def test_tf32_rounding():
@@ -89,24 +136,39 @@ def test_truncated_small_half_keeps_22_bits():
         assert float(err.max()) <= bound, (small.__name__, float(err.max()))
 
 
-def attention_emulated(q, k, v, mm):
+def attention_emulated(q, k, v, mm, prescale=True):
     """Non-causal attention as the kernel computes it, with its two
-    products through ``mm``."""
+    products through ``mm``: q scaled before q k^T (the f32 instances)
+    or S after it (``prescale`` False: the bf16 instances)."""
     hd = q.shape[-1]
-    qh = (q * (1.0 / math.sqrt(hd))).permute(0, 2, 1, 3)
-    s = mm(qh, k.permute(0, 2, 3, 1))
+    scale = 1.0 / math.sqrt(hd)
+    qh = (q * (scale if prescale else 1.0)).permute(0, 2, 1, 3)
+    s = mm(qh, k.permute(0, 2, 3, 1)) * (1.0 if prescale else scale)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = mm(p, v.permute(0, 2, 1, 3)) / p.sum(-1, keepdim=True)
     return o.permute(0, 2, 1, 3)
 
 
 @pytest.mark.parametrize("hd", [32, 40])
-@pytest.mark.parametrize("scheme", ["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("scheme", ["3xtf32", "1xtf32", "bf16x2", "bf16x1"])
 def test_attention_3xtf32_within_tolerance(hd, scheme):
     rng = np.random.default_rng(hd)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 128, 4, hd),
                                                     dtype=np.float32))
                for _ in range(3))
+    if scheme.startswith("bf16"):
+        # bf16 inputs: o rounded to bf16 against the plain version's
+        # (chip_smoke.py's parity gate)
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        ref = fa_ops.attention_plain(q, k, v, causal=False)
+        got = attention_emulated(q.float(), k.float(), v.float(),
+                                 MMS[scheme], prescale=False).bfloat16()
+        ulps = bf16_ulps_past(got, ref, ATTN_TOL)
+        if scheme == "bf16x2":
+            assert ulps <= 1.0, ulps
+        else:
+            assert ulps > 1.0, ulps
+        return
     ref = fa_ops.attention_plain(q, k, v, causal=False)
     err = float((attention_emulated(q, k, v, MMS[scheme]) - ref).abs().max())
     if scheme == "3xtf32":
