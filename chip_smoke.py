@@ -34,7 +34,10 @@ just before it and read just after:
   one stream, failures charged to that expert's streams; (C) req/s of
   meshless, (1, 1) and (2, 4) on the host clock after ``warm_mesh``,
   medians of 3 (reported, not gated); (D) ``make_host_mesh(1, 2)``
-  refused on one card;
+  refused on one card; (E) with two cards or more, a (1, 2) mesh over
+  ``cuda:0`` and ``cuda:1`` held to the meshless engine by
+  ``scripts/mesh_serve_cards.py``'s parts (a)-(c), skipped (its reason
+  in the record) on one card;
 * ``xlstm_serve``: the full ``xlstm-1.3b`` config (48 layers, 3.43 B
   parameters, bf16, seeded random weights) prefills 4 prompts of 512
   tokens with ``prefill_step`` and greedy-decodes 32 tokens with
@@ -1112,7 +1115,10 @@ def mesh_path_phase(torch, s, run_res: dict, card: str) -> dict:
     against the meshless engine, plain and with every flush of the
     busiest expert failing; (C) req/s of meshless, (1, 1) and (2, 4) on
     the host clock after ``warm_mesh``, medians of 3 (reported, not
-    gated); (D) a mesh past the visible cards refused."""
+    gated); (D) a mesh past the visible cards refused; (E) with two cards
+    or more, a (1, 2) mesh over ``cuda:0`` and ``cuda:1`` against the
+    meshless engine (``scripts/mesh_serve_cards.py``'s parts (a)-(c):
+    decisions, streams, launches per card), skipped on one card."""
     from repro_torch.kernels import launches
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serving import ExpertHealth, TryageEngine
@@ -1265,8 +1271,23 @@ def mesh_path_phase(torch, s, run_res: dict, card: str) -> dict:
               and "needs 2 devices but only 1 is visible" in part_d,
               f"make_host_mesh(1, 2) on one card: {part_d!r}")
 
+    # (E) a (1, 2) mesh over two cards: scripts/mesh_serve_cards.py's
+    # parts (a)-(c) against the meshless engine
+    if torch.cuda.device_count() >= 2:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "mesh_serve_cards", ROOT / "scripts" / "mesh_serve_cards.py")
+        cards = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cards)
+        base = cards.meshless(s, ("serve", "run"))
+        part_e = cards.mesh_case(torch, s, 1, 2, base,
+                                 parts=("serve", "run"))
+    else:
+        part_e = {"skipped": "one card is visible; (E) needs two"}
+
     out = {"card": card, "A": part_a, "B": part_b, "C": part_c,
-           "D": part_d, "seconds": time.perf_counter() - t_phase}
+           "D": part_d, "E": part_e,
+           "seconds": time.perf_counter() - t_phase}
     emit("mesh_path", **out)
     return out
 

@@ -49,7 +49,11 @@ chunk.  Mesh serving on the card: a ``(1, 1)`` mesh over the visible
 card gives the meshless engine's Results and ``EngineStats`` bit for
 bit under ``serve()`` with escalations and injected failures, and a
 ``(2, 2)`` mesh over four slots of the card launches ``router_score``
-twice a router batch and decides as the meshless engine.
+twice a router batch and decides as the meshless engine.  Across two
+cards (these tests skip with fewer): each serving kernel launched on
+``cuda:1`` with ``cuda:0`` current gives ``cuda:0``'s output bit for
+bit, and (1, 2) and (2, 1) meshes over the two cards decide as the
+meshless engine, the (2, 1) one adapting too.
 """
 
 import copy
@@ -1138,3 +1142,124 @@ def test_mesh_engine_on_card_is_meshless():
         lam = np.array([mix[a.uid % 4].get(c, 0.0) for c in eng._cnames])
         sc = np.sort(a.pred_losses + lam @ eng._cmat)
         assert sc[1] - sc[0] < 1e-5 or abs(a.confidence - 0.99) < 1e-5, a.uid
+
+
+def _cards(n):
+    _card()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, sees "
+                    f"{torch.cuda.device_count()}")
+
+
+def test_kernels_on_a_second_card_match_the_first():
+    """With ``cuda:0`` current, each serving kernel launched on ``cuda:1``
+    (through ``build.launch``'s device switch) gives ``cuda:0``'s output
+    bit for bit, and leaves ``cuda:0`` current."""
+    _cards(2)
+    torch.cuda.set_device(0)
+    g = torch.Generator().manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    B, d, hh, M = 37, 128, 128, 11
+    head = [r(B, d), r(d, hh) * d ** -0.5, r(hh) * 0.1, r(hh, M) * hh ** -0.5,
+            r(M) * 0.1]
+    unc = [r(d, hh) * d ** -0.5, r(hh) * 0.1, r(hh, M) * hh ** -0.5,
+           r(M) * 0.1]
+    cons = [r(2, M).abs(), r(B, 2).abs()]
+    ladder = torch.randperm(M, generator=g).to(torch.int32)
+    qkv = [r(8, 128, 4, 32) for _ in range(3)]
+    calls = {
+        "router_score": lambda t: rs_ops.router_score_fused(*t[:7]),
+        "router_cascade":
+            lambda t: rc_ops.router_score_cascade_fused(*t[7:19]),
+        "flash_attention": lambda t: (fa_ops.flash_attention(*t[-3:]),)}
+    args = head + cons + head + unc + cons + [ladder] + qkv
+    outs = {}
+    for card in ("cuda:0", "cuda:1"):
+        on = [a.to(card) for a in args]
+        for name, fn in calls.items():
+            got = fn(on)
+            assert all(o.device == torch.device(card) for o in got), name
+            outs[name, card] = [o.cpu() for o in got]
+        assert torch.cuda.current_device() == 0
+    for name in calls:
+        for a, b in zip(outs[name, "cuda:0"], outs[name, "cuda:1"]):
+            assert torch.equal(a, b), name
+
+
+def test_mesh_across_two_cards_decides_as_meshless():
+    """(1, 2) and (2, 1) meshes over ``cuda:0`` and ``cuda:1`` decide as
+    the meshless engine (near ties excused, NLL rtol 1e-5): the (1, 2)
+    mesh flushes on both cards, the (2, 1) mesh launches ``router_score``
+    once a data card a router batch, with its router replica on
+    ``cuda:1``; adapting on (2, 1), that replica follows every swap."""
+    _cards(2)
+    torch.cuda.set_device(0)
+    rc = RouterConfig(n_models=3, vocab_size=64, num_layers=1, d_model=32,
+                      num_heads=2, d_ff=64)
+    lib = _library("cpu")
+    for e in lib.experts:
+        e.params.cuda()
+    router = init_router(rc, seed=9, uncertainty=True, device="cpu").cuda()
+    rng = np.random.default_rng(7)
+    mb = mlm_batch(rng.integers(4, 64, size=(64, 32)).astype(np.int32), rng,
+                   0.2, 64)
+    mix = [{}, {"size": 1.0}, {"size": 8.0}, {"recency": 2.0}]
+    cons = [objective.size_constraint(lib), objective.recency_constraint(lib)]
+
+    def serve(mesh, **kw):
+        clock = [1.0]
+        eng = TryageEngine(lib, router, rc, cons, max_batch=32,
+                           lane_target=8, max_wait_s=1e9, fused_cascade=True,
+                           now_fn=lambda: clock[0], mesh=mesh,
+                           replicate_hot=1, device="cuda:0", **kw)
+
+        def arrivals():
+            for i in range(128):
+                clock[0] += 0.001
+                j = i % 64
+                yield Request(uid=i, tokens=mb["tokens"][j],
+                              targets=mb["targets"][j], mask=mb["mask"][j],
+                              lambdas=mix[i % 4], min_confidence=0.99
+                              if i % 3 == 0 else 0.0)
+
+        launches.reset_launch_counts()
+        res = sorted(eng.serve(arrivals()), key=lambda r: r.uid)
+        assert [r.uid for r in res] == list(range(128))
+        return eng, res, launches.launch_counts()
+
+    def decides_as(ref, got, eng):
+        for a, b in zip(ref, got):
+            if (a.expert, a.cascade_depth) == (b.expert, b.cascade_depth):
+                np.testing.assert_allclose(b.loss, a.loss, rtol=1e-5)
+                continue
+            lam = np.array([mix[a.uid % 4].get(c, 0.0) for c in eng._cnames])
+            sc = np.sort(a.pred_losses + lam @ eng._cmat)
+            assert (sc[1] - sc[0] < 1e-5
+                    or abs(a.confidence - 0.99) < 1e-5), a.uid
+
+    _, base, _ = serve(None)
+    eng, res, counts = serve(make_host_mesh(1, 2))
+    decides_as(base, res, eng)
+    flushes = eng.mesh_summary()["streams"]["flushes"]
+    assert all(f > 0 for f in flushes), flushes
+    assert {next(mod.parameters()).device for (_, slot), mod in
+            eng._expert_params_on.items()
+            if slot == 1} == {torch.device("cuda:1")}
+
+    eng, res, counts = serve(make_host_mesh(2, 1))
+    decides_as(base, res, eng)
+    assert counts["router_score"] == 2 * eng.stats.router_batches
+    assert counts["router_cascade"] == 0
+    replicas = eng._mesh_router_params()
+    assert next(replicas[1].parameters()).device == torch.device("cuda:1")
+
+    adapt = {"adapt_every": 16, "adapt_batch": 8, "adapt_lr": 0.05}
+    ref_eng, ref, _ = serve(None, **adapt)
+    eng, res, _ = serve(make_host_mesh(2, 1), **adapt)
+    assert eng.router_version == ref_eng.router_version > 1
+    decides_as(ref, res, eng)
+    replica = eng._mesh_router_params()[1]
+    assert eng._mesh_rp_cache[0] == eng.router_version
+    for p, q in zip(replica.parameters(), eng.router_params.parameters()):
+        assert p.device == torch.device("cuda:1")
+        assert torch.equal(p.cpu(), q.cpu())
