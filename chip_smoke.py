@@ -3578,7 +3578,9 @@ def dryrun_phase(torch) -> dict:
     ``max_memory_allocated``, the predicted ``dot_flops`` against
     ``FlopCounterMode`` on the real run (with the kernels' recorded
     work), and the step's time against the roofline's ``t_bound``
-    (reported, not gated)."""
+    (reported, not gated).  Then xlstm-1.3b's loops counted by trip
+    count against the card's run (``xlstm_dryrun``) and the cost of the
+    sLSTM's chunk checkpoints (``slstm_chunk_cost``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
@@ -3651,7 +3653,147 @@ def dryrun_phase(torch) -> dict:
         torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["xlstm-1.3b"] = xlstm_dryrun(torch)
+    out["xlstm_chunk_cost"] = slstm_chunk_cost(torch)
+    out["xlstm_seconds"] = time.perf_counter() - t0
     emit("dryrun", **out)
+    return out
+
+
+# xlstm-1.3b at its published widths: (kind, batch, seq, layers); the
+# train step keeps one 8-layer unit (7 mLSTM, 1 sLSTM)
+XLSTM_DRYRUN = (("prefill", 2, 1024, 48), ("train", 2, 512, 8))
+COUNT_KEYS = ("n_ops", "dot_flops", "traffic_bytes", "op_histogram",
+              "kernels")
+
+
+def xlstm_dryrun(torch) -> dict:
+    """The loop-aware dry run (``trace_step`` on meta: the sLSTM's loop
+    over time traced as its first, one middle and its last step) against
+    the same step on the card, every step run: under ``OpCounter`` the
+    ops, dot FLOPs, traffic, histogram and kernels must be equal; the
+    predicted peak against ``max_memory_allocated``, and the step's time
+    against ``t_bound``, reported."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.op_costs import OpCounter
+    from repro_torch.launch.roofline import PRESETS, Roofline
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import InputShape
+    from repro_torch.optim.adamw import adamw_init
+
+    out = {}
+    for kind, B, S, layers in XLSTM_DRYRUN:
+        cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                                  num_layers=layers)
+        shape = InputShape(f"{kind}_{B}x{S}", S, B, kind)
+        t0 = time.perf_counter()
+        dry = dryrun.trace_step(cfg, shape, steps.PerfKnobs(), top=None)
+        dry_s = time.perf_counter() - t0
+        model = model_lib.init_model(cfg, seed=30, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(B * S)
+        # the batch the dry run traces: tokens and, to train, a mask
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         device="cuda", generator=g,
+                                         dtype=torch.int32),
+                 "mask": torch.ones(B, S, device="cuda", dtype=torch.int32)}
+        opt = adamw_init(model) if kind == "train" else None
+
+        def step():
+            if kind == "train":
+                return steps.train_step(model, opt, batch, lr=1e-6,
+                                        device="cuda")
+            return steps.prefill_step(model, batch, device="cuda")
+
+        step()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_s = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        with OpCounter() as counter:
+            step()
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        card, pred = counter.totals(None), dry["cost"]
+        differ = [k for k in COUNT_KEYS if card[k] != pred[k]]
+        check(not differ, f"xlstm dry run {kind} {B}x{S}: the trace and "
+                          f"the card's run count otherwise: "
+                          + "; ".join(f"{k} {pred[k]} vs {card[k]}"
+                                      for k in differ)[:3000])
+        rl = Roofline(flops=pred["dot_flops"],
+                      hbm_bytes=pred["traffic_bytes"], collective_bytes=0.0,
+                      hw=PRESETS["h100"])
+        mem = dry["memory"]
+        out[shape.name] = {
+            "layers": layers, "dry_run_s": dry_s, "counted_run_s": counted_s,
+            "counts_equal": not differ, "n_ops": pred["n_ops"],
+            "dot_flops": pred["dot_flops"],
+            "traffic_bytes": pred["traffic_bytes"],
+            "kernels": pred["kernels"], "loops": pred["loops"],
+            "predicted_peak_bytes": mem["peak_bytes_per_device"],
+            "measured_peak_bytes": peak,
+            "peak_ratio": mem["peak_bytes_per_device"] / peak,
+            "t_bound_s": rl.t_bound, "dominant": rl.dominant,
+            "step_s": step_s, "step_times_s": times,
+            "roofline_share": rl.t_bound / step_s}
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def slstm_chunk_cost(torch) -> dict:
+    """The card's cost of the sLSTM's chunk checkpoints: xlstm's 16-layer
+    ``zoo_train`` step (bf16, 2 x 512, remat) with the sLSTM as the
+    chunked scan and as the per-step loop it replaced
+    (``ssm._slstm_per_step``), on the same
+    weights (lr 0: the weights do not move): ms of a step after a
+    warm-up and peak memory, reported, not gated."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import PerfKnobs, train_step
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import ssm
+    from repro_torch.optim import adamw_init
+
+    arch, cut, B, S, _ = ZOO_TRAIN[2]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    model = model_lib.init_model(cfg, seed=31, device="cuda")
+    opt = adamw_init(model)
+    batch = zoo_train_batch(torch, cfg, B, S, 31)
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": B, "seq": S}
+    chunked = ssm._slstm_scan
+    try:
+        for name, fn in (("per_step_loop", ssm._slstm_per_step),
+                         ("chunked_scan", chunked)):
+            ssm._slstm_scan = fn
+            losses = [float(train_step(model, opt, batch, lr=0.0,
+                                       knobs=PerfKnobs(remat=True)))]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, opt, batch, lr=0.0,
+                                           knobs=PerfKnobs(remat=True))))
+            torch.cuda.synchronize()
+            out[name] = {"ms_per_step": (time.perf_counter() - t0) * 1e3,
+                         "peak_memory_bytes":
+                             torch.cuda.max_memory_allocated(),
+                         "losses": losses}
+    finally:
+        ssm._slstm_scan = chunked
+    out["loss_rel_diff"] = abs(out["chunked_scan"]["losses"][0]
+                               - out["per_step_loop"]["losses"][0]) / abs(
+        out["per_step_loop"]["losses"][0])
+    del model, opt, batch
+    torch.cuda.empty_cache()
     return out
 
 

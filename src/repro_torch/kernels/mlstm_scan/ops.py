@@ -252,8 +252,7 @@ def _launch(q, k, v, i_pre, f_pre, state, keep_states, chunk=None):
                   torch.empty(B, H, S // L, dh, device=q.device),
                   torch.empty(B, H, S // L, device=q.device))
     if q.device.type == "meta":
-        return (torch.empty_like(q),
-                {n: torch.empty_like(t) for n, t in state.items()}, states)
+        return (_like(q), {n: _like(t) for n, t in state.items()}, states)
     # the kernel stages rows with 16-byte copies: 16-byte aligned inputs
     args = [_aligned(t.detach().contiguous())
             for t in (q, k, v, i_pre, f_pre, state["C"], state["n"],
@@ -311,11 +310,12 @@ def mlstm_chunkwise_bwd(q, k, v, i_pre, f_pre, state, h, dh, states=None,
 
 def _backward(q, k, v, i_pre, f_pre, state, h, dh, states, zero_state, L,
               fwd_chunk):
+    ins = (q, k, v, i_pre, f_pre)
     if q.device.type == "meta":
-        return tuple(torch.empty_like(t) for t in (q, k, v, i_pre, f_pre))
+        return tuple(_like(t) for t in ins)
     if q.device.type == "cpu":
-        return mlstm_chunkwise_grad_plain(q, k, v, i_pre, f_pre, state, dh,
-                                          fwd_chunk)
+        return tuple(_like(t).copy_(g) for t, g in zip(
+            ins, mlstm_chunkwise_grad_plain(*ins, state, dh, fwd_chunk)))
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise_bwd: no kernel for {q.device}")
     if h.shape != q.shape or dh.shape != q.shape or dh.dtype != q.dtype:
@@ -463,13 +463,15 @@ class _MlstmChunkwise(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0, zero_state, L):
         state = {"C": C0, "n": n0, "m": m0}
-        if q.device.type == "cpu":    # the plain backward needs no states
-            (h, out), states = mlstm_chunkwise_plain(q, k, v, i_pre, f_pre,
-                                                     state, L), ()
+        keep = backward_chunk(q.shape[1], q.shape[3], L) < q.shape[1]
+        if q.device.type == "cpu":
+            # the plain backward needs no states; they are kept as the
+            # kernel keeps them, so that the CPU's memory is the card's
+            h, out, states = _chunkwise(q, k, v, i_pre, f_pre, state, L,
+                                        keep)
+            h, out = _as_written(q, state, h, out)
         else:
-            B, S, H, dh = q.shape
-            h, out, states = _launch(q, k, v, i_pre, f_pre, state,
-                                     backward_chunk(S, dh, L) < S, L)
+            h, out, states = _launch(q, k, v, i_pre, f_pre, state, keep, L)
         ctx.set_materialize_grads(False)
         ctx.zero_state, ctx.chunk = zero_state, L
         ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, h,
@@ -520,7 +522,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state, zero_state=False,
                 "backward takes no gradient into the state (training starts "
                 "from zeros): detach it")
         grad = any(t.requires_grad for t in (q, k, v, i_pre, f_pre))
-    keep = grad and q.device.type != "cpu" and backward_chunk(S, dh, L) < S
+    keep = grad and backward_chunk(S, dh, L) < S
     h, out = op_costs.kernel_call(
         "mlstm_scan", lambda: forward_cost(B, S, H, dh, L, keep), _scan,
         q, k, v, i_pre, f_pre, state, zero_state, L, grad)
@@ -544,9 +546,23 @@ def _scan(q, k, v, i_pre, f_pre, state, zero_state, L, grad):
             zero_state, L)
         return h, {"C": C1, "n": n1, "m": m1}
     if q.device.type == "cpu":
-        return mlstm_chunkwise_plain(q, k, v, i_pre, f_pre, state, L)
+        return _as_written(q, state, *mlstm_chunkwise_plain(
+            q, k, v, i_pre, f_pre, state, L))
     h, out, _ = _launch(q, k, v, i_pre, f_pre, state, False, L)
     return h, out
+
+
+def _like(t):
+    """An output of the kernel's for input ``t``: laid out as ``t``
+    made contiguous (meta too, for the dry run)."""
+    return torch.empty_like(t.contiguous())
+
+
+def _as_written(q, state, h, out):
+    """The plain version's (h, state) laid out as the kernel writes them,
+    so that what follows runs the same ops as on the card."""
+    return (_like(q).copy_(h),
+            {n: _like(state[n]).copy_(t) for n, t in out.items()})
 
 
 mlstm_chunkwise.launches = 0

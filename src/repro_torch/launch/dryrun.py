@@ -8,7 +8,9 @@ ask: it traces the step that ``launch.steps`` runs (``train_step``,
 ``prefill_step`` or ``serve_step``, as the reference's ``build_step``
 picks it) on the ``meta`` device, where tensors have shapes and types
 and no storage, so no weight is allocated and nothing is launched, under
-``launch.op_costs.OpCounter``.  Each record holds:
+``launch.op_costs.OpCounter``.  ``trace_step(..., device=)`` runs the
+same step for real on another device, every loop iteration run: what
+the tests and the card hold the trace against.  Each record holds:
 
   * ``memory``: argument bytes (``parameter_bytes``, the AdamW
     moments' ``optimizer_bytes``, ``input_bytes``, ``cache_bytes``),
@@ -23,6 +25,14 @@ and no storage, so no weight is allocated and nothing is launched, under
     data-sheet peaks);
   * ``model_flops`` (6 N D for a train step, 2 N D for prefill, 2 N B
     for decode) and ``active_params``;
+  * ``loops``: each loop counted by trip count (name, trip count, the
+    runs it stands for, the runs and iterations traced), as the
+    reference weights a while body by its trip count: on ``meta`` a
+    loop of n steps is traced as its first step, one middle step
+    counted n - 2 times and its last (``launch.op_costs.counted_loop``;
+    the sLSTM's loop over time and its loop over chunks), so that
+    xlstm-1.3b's 32,768-step prefill and 4,096-step training traces in
+    seconds to minutes, not hours;
   * ``status`` (``OK``, ``SKIP`` with the reason ``launch.specs``
     gives, or ``FAIL`` with ``error`` and ``trace``) and ``trace_s``,
     the seconds the trace took.
@@ -54,6 +64,8 @@ dropped is written into the record with the reference's value.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod \\
       --arch qwen1.5-0.5b --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-1.3b \\
+      --shape train_4k [--mesh pod|multipod]
 
 Runs on any host: the meta device needs no card.  Records go to
 ``experiments/dryrun_torch/`` (``--out``).
@@ -128,13 +140,15 @@ def knobs_for(arch: str, shape: str,
     return PerfKnobs(**kept), dropped
 
 
-def _meta_inputs(cfg, shape: InputShape) -> dict:
-    """The step's batch as meta tensors (``launch.specs``)."""
+def _inputs(cfg, shape: InputShape, device=META) -> dict:
+    """The step's batch (``launch.specs``): meta tensors, or zeros on
+    another device."""
     table = (specs.decode_token_specs(cfg, shape) if shape.kind == "decode"
              else specs.batch_specs(cfg, shape))
     if shape.kind == "prefill":
         table = {k: v for k, v in table.items() if k in ("tokens", "embeds")}
-    return {k: torch.empty(s, dtype=dt, device=META)
+    make = torch.empty if torch.device(device) == META else torch.zeros
+    return {k: make(s, dtype=dt, device=device)
             for k, (s, dt) in table.items()}
 
 
@@ -163,16 +177,19 @@ def _storages(tree) -> dict:
 
 
 def trace_step(cfg, shape: InputShape, knobs: PerfKnobs,
-               mesh=None) -> dict:
+               mesh=None, device=META, top: int | None = 25) -> dict:
     """Build the model on meta, trace one step under ``OpCounter``:
     (memory, cost, total parameters).  With ``mesh`` (a ``DeviceMesh``
     of a fake world) the step runs sharded and every number is one
     device's: the model, moments, batch and state are laid out by the
     rules first, and the batch counts as its shard (the step lays each
-    microbatch out as it cuts it)."""
-    model = model_lib.init_model(cfg, device=META)
+    microbatch out as it cuts it).  ``device``: another device runs the
+    same step for real (weights from seed 0, zeros for a batch), every
+    loop iteration run: what the trace is held against.  ``top``: how
+    many ops the histogram keeps (None: all)."""
+    model = model_lib.init_model(cfg, device=device)
     total = model_lib.count_params(model)
-    inputs = _meta_inputs(cfg, shape)
+    inputs = _inputs(cfg, shape, device)
     rules = None
     if mesh is not None:
         rules = steps.rules_for(mesh, knobs)
@@ -184,7 +201,7 @@ def trace_step(cfg, shape: InputShape, knobs: PerfKnobs,
         args["optimizer"] = adamw_init(model)
     elif shape.kind == "decode":
         args["cache"] = model_lib.init_decode_state(
-            cfg, shape.global_batch, shape.seq_len, device=META)
+            cfg, shape.global_batch, shape.seq_len, device=device)
         if mesh is not None:
             args["cache"] = steps.shard_decode_state(args["cache"], cfg,
                                                      mesh, rules)
@@ -197,12 +214,12 @@ def trace_step(cfg, shape: InputShape, knobs: PerfKnobs,
     def step():
         if shape.kind == "train":
             return steps.train_step(model, args["optimizer"], args["input"],
-                                    knobs=knobs, device=META, mesh=mesh)
+                                    knobs=knobs, device=device, mesh=mesh)
         if shape.kind == "prefill":
-            return steps.prefill_step(model, args["input"], device=META,
+            return steps.prefill_step(model, args["input"], device=device,
                                       mesh=mesh, knobs=knobs)
         return steps.serve_step(model, args["cache"], args["input"]["tokens"],
-                                shape.seq_len - 1, device=META, mesh=mesh,
+                                shape.seq_len - 1, device=device, mesh=mesh,
                                 knobs=knobs)
 
     if mesh is not None:
@@ -224,7 +241,7 @@ def trace_step(cfg, shape: InputShape, knobs: PerfKnobs,
               "peak_bytes_per_device": argument + temp,
               "device_bytes": card,
               "fits_one_card": argument + temp <= card}
-    return {"memory": memory, "cost": counter.totals(),
+    return {"memory": memory, "cost": counter.totals(top),
             "total_params": total}
 
 
@@ -270,6 +287,7 @@ def run_one(arch: str, shape, tag: str = "", knobs: PerfKnobs | None = None,
         knob_rec["rule_overrides"] = knobs.rule_overrides
     rec.update(
         status="OK",
+        loops=cost.pop("loops"),
         knobs=knob_rec,
         dropped_knobs=dropped,
         n_chips=n_chips,

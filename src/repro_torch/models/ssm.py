@@ -29,7 +29,13 @@ to the model's type before ``* silu(og)`` and ``out_proj``; the sLSTM's
 (``kernels.mlstm_scan.ops.mlstm_chunkwise``: the CUDA kernel on the
 card, its chunkwise plain version on the CPU); ``mlstm_step`` through
 the sequential plain cell, as the JAX package does.  The sLSTM
-recurrence is a ``lax.scan`` there and a Python loop over time here.
+recurrence keeps the reference's structure: ``chunked_scan`` over chunks
+of ``pick_chunk(T, 128)`` steps, each chunk a loop over time (a
+``lax.scan`` there, a Python loop here) checkpointed under autograd, so
+a backward keeps the chunk-boundary states and one chunk's
+intermediates; the recurrent weights are laid out for the product once
+a call.  On ``meta`` tensors (the dry run) both loops are counted by
+trip count (``launch.op_costs.counted_loop``).
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from repro_torch.kernels.mlstm_scan.ops import (log_sigmoid, mlstm_chunkwise,
                                                 mlstm_sequential)
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import head_proj, trunc_normal
-from repro_torch.models.scan_utils import pick_chunk
+from repro_torch.launch import op_costs
+from repro_torch.models.scan_utils import chunked_scan, pick_chunk
 from repro_torch.sharding import local
 from repro_torch.sharding.context import (distribute, is_dtensor,
                                           recompute_context, shard_act,
@@ -324,25 +331,32 @@ def init_slstm_state(batch: int, cfg: ModelConfig, device=None) -> dict:
             "m": z}
 
 
-def _slstm_cell_seq(p, wx, st, cfg):
-    """wx: (B, T, 4d) input projections.  Returns (hs (B, T, d) f32,
-    state).  On a mesh the loop runs on each device's block of the
-    batch (``_sharded_slstm``): DTensor would dispatch every step's ops
-    through its sharding propagation."""
-    if is_dtensor(wx):
-        return _sharded_slstm(p, wx, st, cfg)
+def _recurrent(r_h, cfg):
+    """``r_h`` (4, H, dh, dh) laid out once for the time loop's product:
+    (H, dh, 4 dh), the operand ``einsum("ghkl,bhk->...")`` lays out for
+    its ``bmm`` (it would copy it afresh every step)."""
+    H, dh = _slstm_dims(cfg)
+    return r_h.permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)
+
+
+def _slstm_cell_seq(R, b, wx, st, cfg):
+    """wx: (B, T, 4d) input projections; R: ``_recurrent(r_h)``.
+    Returns (hs (B, T, d) f32, state): a loop over time
+    (``op_costs.counted_loop``)."""
     H, dh = _slstm_dims(cfg)
     B, T, _ = wx.shape
     d = H * dh
-    h, c, n, m = st["h"], st["c"], st["n"], st["m"]
     # xt + b before the recurrent term, as the JAX step adds them
-    xb = wx.float() + p["b"]
-    hs = []
-    for t in range(T):
-        # (B, 4, H, dh) flattened is the JAX concat of the 4 gates' rec
-        rec = torch.einsum("ghkl,bhk->bghl", p["r_h"],
-                           h.reshape(B, H, dh)).reshape(B, 4 * d)
-        z_pre, i_pre, f_pre, o_pre = (xb[:, t] + rec).chunk(4, dim=-1)
+    xb = wx.float() + b
+
+    def step(carry, xt):
+        h, c, n, m = carry
+        # (H, B, 4 dh): the JAX einsum's rec of each head; as (B, 4, H,
+        # dh) its concat of the 4 gates
+        rec = torch.bmm(h.reshape(B, H, dh).transpose(0, 1), R)
+        pre = (xt.view(B, 4, H, dh)
+               + rec.view(H, B, 4, dh).permute(1, 2, 0, 3))
+        z_pre, i_pre, f_pre, o_pre = pre.reshape(B, 4 * d).chunk(4, dim=-1)
         logf = log_sigmoid(f_pre)
         m_new = torch.maximum(logf + m, i_pre)
         i_act = torch.exp(i_pre - m_new)
@@ -350,15 +364,69 @@ def _slstm_cell_seq(p, wx, st, cfg):
         c = f_act * c + i_act * torch.tanh(z_pre)
         n = f_act * n + i_act
         h = torch.sigmoid(o_pre) * (c / torch.clamp(n, min=1e-6))
-        m = m_new
-        hs.append(h)
+        return (h, c, n, m_new), h
+
+    (h, c, n, m), hs = op_costs.counted_loop(
+        step, (st["h"], st["c"], st["n"], st["m"]), xb.unbind(1),
+        "slstm.steps")
     return torch.stack(hs, dim=1), {"h": h, "c": c, "n": n, "m": m}
 
 
-def _sharded_slstm(p, wx, st, cfg):
-    """``_slstm_cell_seq`` per device on its batch block (each row's
-    recurrence is independent); the recurrent weights and bias are
-    gathered, their gradients partial sums over the batch's blocks."""
+def _slstm_scan(r_h, b, wx, st, cfg, chunk):
+    """The recurrence over wx (B, T, 4d) from ``st`` as the reference
+    runs it: ``chunked_scan`` over chunks of ``pick_chunk(T, chunk)``
+    steps, each chunk's loop checkpointed under autograd, the recurrent
+    weights laid out once.  (hs (B, T, d) f32, state)."""
+    R = _recurrent(r_h, cfg)
+
+    def step(state, wx_chunk):
+        hs, state = _slstm_cell_seq(R, b, wx_chunk, state, cfg)
+        return state, hs
+
+    state, hs = chunked_scan(step, st, wx, seq_axis=1,
+                             chunk=pick_chunk(wx.shape[1], chunk),
+                             name="slstm.chunks")
+    return hs, state
+
+
+def _slstm_per_step(r_h, b, wx, st, cfg, chunk=None):
+    """``_slstm_scan`` as one loop over all T steps, the recurrent
+    product as the reference's einsum every step (``r_h`` laid out
+    afresh and saved each step), nothing checkpointed: the form the
+    chunked scan replaced.  The tests, ``chip_smoke.py`` and
+    ``scripts/dryrun_slstm_forms.py`` hold ``_slstm_scan`` against it
+    (bits, memory, time); nothing on a step's path calls it."""
+    H, dh = _slstm_dims(cfg)
+    B, T, _ = wx.shape
+    d = H * dh
+    xb = wx.float() + b
+
+    def step(carry, xt):
+        h, c, n, m = carry
+        rec = torch.einsum("ghkl,bhk->bghl", r_h,
+                           h.reshape(B, H, dh)).reshape(B, 4 * d)
+        z_pre, i_pre, f_pre, o_pre = (xt + rec).chunk(4, dim=-1)
+        logf = log_sigmoid(f_pre)
+        m_new = torch.maximum(logf + m, i_pre)
+        i_act = torch.exp(i_pre - m_new)
+        f_act = torch.exp(logf + m - m_new)
+        c = f_act * c + i_act * torch.tanh(z_pre)
+        n = f_act * n + i_act
+        h = torch.sigmoid(o_pre) * (c / torch.clamp(n, min=1e-6))
+        return (h, c, n, m_new), h
+
+    (h, c, n, m), hs = op_costs.counted_loop(
+        step, (st["h"], st["c"], st["n"], st["m"]), xb.unbind(1),
+        "slstm.steps")
+    return torch.stack(hs, dim=1), {"h": h, "c": c, "n": n, "m": m}
+
+
+def _sharded_slstm(p, wx, st, cfg, chunk):
+    """``_slstm_scan`` per device on its batch block (each row's
+    recurrence is independent; DTensor would dispatch every step's ops
+    through its sharding propagation); the recurrent weights and bias
+    are gathered, their gradients partial sums over the batch's
+    blocks."""
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -374,8 +442,7 @@ def _sharded_slstm(p, wx, st, cfg):
                else distribute(st[k], mesh, bw) for k in keys])
 
     def run(wl, rl, bl, *state):
-        hs, out = _slstm_cell_seq({"r_h": rl, "b": bl}, wl,
-                                  dict(zip(keys, state)), cfg)
+        hs, out = _slstm_scan(rl, bl, wl, dict(zip(keys, state)), cfg, chunk)
         return (hs, *(out[k] for k in keys))
 
     hs, *state = local_map(
@@ -386,10 +453,17 @@ def _sharded_slstm(p, wx, st, cfg):
     return hs, dict(zip(keys, state))
 
 
-def slstm_full(p, x, cfg: ModelConfig, state=None):
+def slstm_full(p, x, cfg: ModelConfig, state=None, chunk=128):
+    """x (B, T, d) -> (y (B, T, d), state) through ``_slstm_scan``
+    (chunks of ``pick_chunk(T, chunk)`` steps, as the reference's); on a
+    mesh per device (``_sharded_slstm``)."""
     if state is None:
         state = init_slstm_state(x.shape[0], cfg, x.device)
-    hs, state = _slstm_cell_seq(p, x @ p["w_x"], state, cfg)
+    wx = x @ p["w_x"]
+    if is_dtensor(wx):
+        hs, state = _sharded_slstm(p, wx, state, cfg, chunk)
+    else:
+        hs, state = _slstm_scan(p["r_h"], p["b"], wx, state, cfg, chunk)
     return hs.to(x.dtype) @ p["out_proj"], state
 
 

@@ -20,7 +20,9 @@
   4 B H hd (S T - pairs) a layer), and the mLSTM kernel records its
   whole L x L in-chunk tile where XLA's count leaves out the pairs past
   the diagonal (the port is larger by 4 B H dh (L^2 - L (L + 1) / 2) a
-  layer and chunk);
+  layer and chunk); and at S 256 on meta, the sLSTM's loop counted by
+  trip count, equal but for the normaliser's q n, which XLA counts as
+  a dot and the mLSTM kernel's cost leaves out;
 * the kernels' aten ops are hidden from the counter (the plain versions
   on the CPU) while their recorded work is counted once;
 * ``run_one``'s SKIP and OK match ``applicable`` for every pair (the
@@ -250,6 +252,42 @@ def test_prefill_dot_flops_match_the_compiled_reference(arch):
     assert got["kernels"]
     assert got["dot_flops"] == want - attn_term + mlstm_term, (
         got["dot_flops"], want, attn_term, mlstm_term)
+
+
+def test_xlstm_prefill_on_meta_matches_the_compiled_reference():
+    """The reduced xlstm's prefill at S 256 traced on meta, its sLSTM
+    loop over 128 steps counted by trip count: its dot FLOPs equal the
+    compiled reference's ``loop_aware_totals``, which weights the scan's
+    while body by its trip count.  No attention layer; at S 256 both
+    sides count the mLSTM's whole L x L tiles (the reference's chunks
+    are scanned, so nothing folds away as at one chunk), and the
+    reference also counts the normaliser's q n (2 L dh a row and chunk
+    of 64) as a dot, which the kernel's cost leaves out."""
+    jcfg = jget_config("xlstm-1.3b").reduced(d_model=64)
+    params, _ = jm.init_model(jax.random.PRNGKey(0), jcfg)
+    B, S = 2, 256
+    toks = np.zeros((B, S), np.int32)
+    hlo = jax.jit(lambda p, t: jm.prefill(p, jcfg, {"tokens": t})[0]).lower(
+        params, jnp.asarray(toks)).compile().as_text()
+    want = loop_aware_totals(hlo)["dot_flops"]
+    cfg = bridge.model_config_from(jcfg)
+    model = tm.init_model(cfg, device="meta")
+    with torch.inference_mode(), op_costs.OpCounter() as c:
+        tm.prefill(model, {"tokens": torch.empty(B, S, dtype=torch.int32,
+                                                 device="meta")})
+    got = c.totals()
+    assert got["loops"] == [{"name": "slstm.steps", "trip_count": 128,
+                             "runs": 2, "traced_runs": 2,
+                             "iterations_traced": 6}]
+    kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)]
+             for i in range(cfg.num_layers)]
+    assert "attn" not in kinds
+    mh = cfg.ssm.num_heads
+    mdh = (cfg.ssm.expand * cfg.d_model) // mh
+    qn_term = kinds.count("mlstm") * 2 * B * mh * mdh * S
+    assert got["kernels"]["mlstm_scan"]["calls"] == kinds.count("mlstm")
+    assert got["dot_flops"] == want - qn_term, (got["dot_flops"], want,
+                                                qn_term)
 
 
 # ------------------------------------------------------------- dry run

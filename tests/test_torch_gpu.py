@@ -53,7 +53,9 @@ twice a router batch and decides as the meshless engine.  Across two
 cards (these tests skip with fewer): each serving kernel launched on
 ``cuda:1`` with ``cuda:0`` current gives ``cuda:0``'s output bit for
 bit, and (1, 2) and (2, 1) meshes over the two cards decide as the
-meshless engine, the (2, 1) one adapting too.
+meshless engine, the (2, 1) one adapting too.  The dry run: xlstm-1.3b's
+steps traced on meta with the sLSTM's loop counted by trip count count
+exactly what the same steps count on the card.
 """
 
 import copy
@@ -1263,3 +1265,24 @@ def test_mesh_across_two_cards_decides_as_meshless():
     for p, q in zip(replica.parameters(), eng.router_params.parameters()):
         assert p.device == torch.device("cuda:1")
         assert torch.equal(p.cpu(), q.cpu())
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_xlstm_dry_run_counts_what_the_card_runs(kind):
+    """The dry run's trace of xlstm-1.3b at full width (one 8-layer
+    unit, 1 x 256; the sLSTM's loop over time counted by trip count on
+    meta) against the same step on the card, every step run: the ops,
+    dot FLOPs, traffic, histogram and kernels are equal."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import PerfKnobs
+    from repro_torch.models.common import InputShape
+    _card()
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=8)
+    shape = InputShape(kind, 256, 1, kind)
+    got = dryrun.trace_step(cfg, shape, PerfKnobs(), top=None)["cost"]
+    want = dryrun.trace_step(cfg, shape, PerfKnobs(), device="cuda",
+                             top=None)["cost"]
+    for key in ("n_ops", "dot_flops", "traffic_bytes", "op_histogram",
+                "kernels"):
+        assert got[key] == want[key], key
+    assert got["loops"] and not want["loops"]
