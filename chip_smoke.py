@@ -38,6 +38,20 @@ just before it and read just after:
   ``cuda:0`` and ``cuda:1`` held to the meshless engine by
   ``scripts/mesh_serve_cards.py``'s parts (a)-(c), skipped (its reason
   in the record) on one card;
+* ``gate_slo``, ``gate_decision_latency``, ``gate_mesh``: three of
+  ``benchmarks/run.py``'s gated benches through ``launch.gates`` on
+  their synthetic libraries and routers (seeded, drawn on the card), at
+  the reference's sizes and thresholds, each failing the script when its
+  gate refuses: availability >= 0.99 with health and fallback while one
+  expert fails from request 64, the baseline below it, p99 <= 0.25 s on
+  the synthetic clock (then the same weights on the CPU, differing rows
+  recorded);
+  the fused cascade's choices and depths identical to the staged path's
+  at 1,000, 4,000 and 16,000 rows and its p50 below the staged one at
+  16,000 (both router kernels then held to their plain versions on that
+  path's inputs at each batch); choices identical on (1, 1), (1, 2),
+  (1, 4) and (2, 4) meshes over slots of the card and the simulated
+  tokens/s at size 4 >= 3x size 1;
 * ``xlstm_serve``: the full ``xlstm-1.3b`` config (48 layers, 3.43 B
   parameters, bf16, seeded random weights) prefills 4 prompts of 512
   tokens with ``prefill_step`` and greedy-decodes 32 tokens with
@@ -113,6 +127,14 @@ just before it and read just after:
   Q-tables, the BERT-small router, the baselines and the Pareto sweep)
   on the card, with every expert's and the router's loss required to
   fall, and 3 expert and 3 router steps held card vs CPU;
+* ``gate_cascade``: ``benchmarks/run.py``'s ``bench_cascade`` through
+  ``launch.gates.cascade`` (an uncertainty head calibrated on the test
+  Q-table first; 4 single-shot and 4 cascade operating points of 256
+  mixed-flag requests through ``run()``): the gate, some cascade point
+  strictly dominating some single-shot point, on a library and router
+  trained on the card at the reference's cached fast config (60 expert
+  steps); and on ``train_path``'s 300-step artifacts the rows and the
+  verdict, recorded (there it does not dominate);
 * ``adapt_path``: ``benchmarks/run.py``'s drift scenario on the trained
   library through ``serve()``, a frozen and an adapting engine, and one
   ``"head"`` and one ``"all"`` online step held card vs CPU.
@@ -168,7 +190,8 @@ just before it and read just after:
 
 It checks that every kernel of each path was launched in that path's
 run, and times each kernel beside its bound; the router heads also at
-every bucket size the path launches them at, beside the launch floor
+16,000 rows and at every bucket size the path launches them at, beside
+the launch floor
 (the device time of an empty kernel, ``csrc/launch_floor.cu``), and
 attention also at the zoo decoders' bf16 prefill shapes beside SDPA.  Each
 phase prints one JSON line; the line before the last is the card's
@@ -410,6 +433,11 @@ N_REQUESTS, N_UNIQUE, SEQ, MAX_BATCH = 256, 192, 128, 32
 # rate of its runs A and B, about half serve()'s closed-loop rate
 CT_UNIQUE, CT_REPEAT, CT_PARA = 96, 64, 96
 CLI_RATE = 600.0
+# the script's time limit: the plain versions in ``times`` are timed over
+# this many calls (the kernels over 200), and the sLSTM's chunk cost in
+# ``dryrun`` at one unit of xlstm-1.3b
+PLAIN_ITERS = 20
+SLSTM_COST_LAYERS = 8
 OUT_DIR = ROOT / "chiprun_out"
 
 # name: (source, the TPU kernel it replaces, the name its device
@@ -438,6 +466,14 @@ SOURCES = {
                        "src/repro/models/ssm.py:254", "mlstm_bwd_"),
 }
 ROUTER_PATH = ("router_score", "router_cascade", "flash_attention")
+# the decision_latency gate's batches (benchmarks/run.py's full mode)
+LATENCY_BATCHES = (1000, 4000, 16000)
+# the experiment config of bench_cascade's gate: the reference's cached
+# artifacts are its fast config (benchmarks/run.py _results(fast=True),
+# python -m repro.core.experiment --fast), the regime the gate was set on
+CASCADE_FAST = {"expert_steps": 60, "n_train_prompts": 512,
+                "n_val_prompts": 128, "n_test_per_domain": 24,
+                "router_epochs": 3}
 # kernels whose products run on the tensor cores: name -> the functions
 # that must hold HMMA or HGMMA ("" every one).  An f32 instance holds
 # TF32 kinds only (3xTF32); a bf16 instance (its mangled name holds
@@ -578,43 +614,59 @@ def choice_diffs(torch, got, want, combined):
     return int(diff.numel()), int(near[diff].sum())
 
 
+def heads_parity(torch, t: dict, what: str) -> dict:
+    """Both router kernels on the inputs ``t`` (``SCORE_ARGS``,
+    ``CASCADE_ARGS``) against their plain versions: predictions and sigma
+    within ROUTER_TOL, choices and escalation targets identical but where
+    the constrained scores' top two (or the two targets) are within
+    CHOICE_GAP.  Returns the case's record."""
+    from repro_torch.kernels.router_cascade import ops as rc_ops
+    from repro_torch.kernels.router_score import ops as rs_ops
+    pred, choice = rs_ops.router_score_fused(*(t[k] for k in SCORE_ARGS))
+    cpred, sigma, cchoice, esc = rc_ops.router_score_cascade_fused(
+        *(t[k] for k in CASCADE_ARGS))
+    torch.cuda.synchronize()
+    ppred, pchoice = rs_ops.router_score_plain(*(t[k] for k in SCORE_ARGS))
+    qpred, qsigma, qchoice, qesc = rc_ops.router_cascade_plain(
+        *(t[k] for k in CASCADE_ARGS))
+    combined = ppred + t["lam"] @ t["cvals"]
+    e_s = float((pred - ppred).abs().max())
+    e_c = max(float((cpred - qpred).abs().max()),
+              float((sigma - qsigma).abs().max()))
+    d_s, n_s = choice_diffs(torch, choice, pchoice, combined)
+    d_c, n_c = choice_diffs(torch, cchoice, qchoice, combined)
+    # an escalation target may differ only between near-tied experts
+    rows = ((esc != qesc) & (cchoice == qchoice)).nonzero().flatten()
+    gap = (combined[rows, esc[rows].long()]
+           - combined[rows, qesc[rows].long()]).abs()
+    d_e, n_e = int(rows.numel()), int((gap < CHOICE_GAP).sum())
+    check(e_s <= ROUTER_TOL and e_c <= ROUTER_TOL,
+          f"router heads {what}: max abs err {e_s}, {e_c}")
+    check(d_s == n_s and d_c == n_c and d_e == n_e,
+          f"router choices {what}: {d_s}/{d_c} differ, {n_s}/{n_c} near "
+          f"ties; {d_e} escalation targets differ, {n_e} near ties")
+    return {"kernel": "router", "B": int(t["emb"].shape[0]),
+            "d": int(t["emb"].shape[1]), "M": int(t["w2"].shape[1]),
+            "n_c": int(t["cvals"].shape[0]), "err_score": e_s,
+            "err_cascade": e_c, "choice_diff": [d_s, d_c],
+            "near_tie_rows": [n_s, n_c], "esc_diff": [d_e, n_e]}
+
+
 def parity_phase(torch) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mlstm_scan import ops as ml_ops
-    from repro_torch.kernels.router_cascade import ops as rc_ops
-    from repro_torch.kernels.router_score import ops as rs_ops
     err = {name: 0.0 for name in SOURCES}
     cases = []
-    for B in (1, 3, 32, 37):
-        t = head_inputs(torch, B, seed=B)
-        pred, choice = rs_ops.router_score_fused(*(t[k] for k in SCORE_ARGS))
-        cpred, sigma, cchoice, esc = rc_ops.router_score_cascade_fused(
-            *(t[k] for k in CASCADE_ARGS))
-        torch.cuda.synchronize()
-        ppred, pchoice = rs_ops.router_score_plain(*(t[k] for k in SCORE_ARGS))
-        qpred, qsigma, qchoice, qesc = rc_ops.router_cascade_plain(
-            *(t[k] for k in CASCADE_ARGS))
-        combined = ppred + t["lam"] @ t["cvals"]
-        e_s = float((pred - ppred).abs().max())
-        e_c = max(float((cpred - qpred).abs().max()),
-                  float((sigma - qsigma).abs().max()))
-        d_s, n_s = choice_diffs(torch, choice, pchoice, combined)
-        d_c, n_c = choice_diffs(torch, cchoice, qchoice, combined)
-        # an escalation target may differ only between near-tied experts
-        rows = ((esc != qesc) & (cchoice == qchoice)).nonzero().flatten()
-        gap = (combined[rows, esc[rows].long()]
-               - combined[rows, qesc[rows].long()]).abs()
-        d_e, n_e = int(rows.numel()), int((gap < CHOICE_GAP).sum())
-        check(e_s <= ROUTER_TOL and e_c <= ROUTER_TOL,
-              f"router heads at B={B}: max abs err {e_s}, {e_c}")
-        check(d_s == n_s and d_c == n_c and d_e == n_e,
-              f"router choices at B={B}: {d_s}/{d_c} differ, {n_s}/{n_c} "
-              f"near ties; {d_e} escalation targets differ, {n_e} near ties")
-        err["router_score"] = max(err["router_score"], e_s)
-        err["router_cascade"] = max(err["router_cascade"], e_c)
-        cases.append({"kernel": "router", "B": B, "err_score": e_s,
-                      "err_cascade": e_c, "choice_diff": [d_s, d_c],
-                      "near_tie_rows": [n_s, n_c], "esc_diff": [d_e, n_e]})
+    # the engine's bucket sizes and a ragged one, then the batches the
+    # decision_latency gate decides (an 8-block cluster a row: a grid of
+    # 8 x 16,000 at the largest)
+    for B in (1, 3, 32, 37) + LATENCY_BATCHES:
+        case = heads_parity(torch, head_inputs(torch, B, seed=B),
+                            f"at B={B}")
+        err["router_score"] = max(err["router_score"], case["err_score"])
+        err["router_cascade"] = max(err["router_cascade"],
+                                    case["err_cascade"])
+        cases.append(case)
     attn_cases = [(32, 4, 32, False, 0, 0.0), (32, 4, 40, False, 0, 0.0),
                   (32, 8, 32, False, 0, 0.0), (32, 8, 40, False, 0, 0.0),
                   (4, 4, 40, True, 32, 30.0)]
@@ -2435,7 +2487,7 @@ def train_cli_phase(torch) -> dict:
     return {"runs": runs}
 
 
-def timed_expert_steps(torch, spec, corpus, steps=20, warmup=3) -> dict:
+def timed_expert_steps(torch, spec, corpus, steps=10, warmup=3) -> dict:
     """ms per training step of one expert at the experiment's batch
     (16 x 128), on fresh weights: host clock around ``steps`` steps
     ending in a sync, after a warm-up."""
@@ -3152,6 +3204,213 @@ def serve_cli_phase(torch, eps: float) -> dict:
     return out
 
 
+# ------------------------------------------------- the reference's gates
+
+def run_gate(torch, name: str, gen, kernels) -> dict:
+    """Run one gate of ``launch.gates`` with the launch counts set to 0
+    just before it: every row it yields (a refusal raises through, so
+    the script fails) and the kernels it launched, each of ``kernels`` at
+    least once."""
+    from repro_torch.kernels import launches
+    launches.reset_launch_counts()
+    rows = [[n, v, d] for n, v, d in gen]
+    torch.cuda.synchronize()
+    counts = launches.launch_counts()
+    for k in kernels:
+        check(counts[k] > 0, f"{name}: kernel {k} was not launched")
+    return {"rows": rows, "launches": counts}
+
+
+def gate_slo_phase(torch, card: str) -> dict:
+    """``bench_slo`` on the card (``launch.gates.slo``): the three-expert
+    library and router drawn from seeds on the card, 192 bursty requests
+    on a synthetic clock, one expert failing from request 64, with and
+    without health and fallback; then the same weights on the CPU, the
+    rows that differ from the card's recorded."""
+    from repro_torch.launch import gates
+    t0 = time.perf_counter()
+    lib = gates.small_library("cuda")
+    router, rc = gates.small_router(len(lib), device="cuda")
+    timeline = []
+    out = run_gate(torch, "gate_slo",
+                   gates.slo(lib, router, rc, device="cuda", table=timeline),
+                   ("router_score", "flash_attention"))
+    lib_cpu = copy.deepcopy(lib)
+    for e in lib_cpu.experts:
+        e.params.cpu()
+    cpu = [[n, v, d] for n, v, d in gates.slo(
+        lib_cpu, copy.deepcopy(router).cpu(), rc, device="cpu")]
+    out = {"card": card, **out, "timeline": timeline,
+           "cpu_rerun_differs": [[a, b] for a, b in zip(out["rows"], cpu)
+                                 if a != b],
+           "seconds": time.perf_counter() - t0}
+    emit("gate_slo", **out)
+    return out
+
+
+def gate_decision_latency_phase(torch, card: str) -> dict:
+    """``bench_decision_latency`` on the card
+    (``launch.gates.decision_latency``): the fused cascade against the
+    staged path at 1,000, 4,000 and 16,000 rows (odd rows carry the
+    median-confidence threshold), 7 repeats, the reference's gates on
+    choices, depths and p50; ``router_score`` tuned at those batches by
+    ``launch.autotune`` into a temporary launch-config table first, as
+    the reference's gate expects a table, so the tuned geometry is timed
+    against the default where the two differ.  Then both router kernels
+    at those batches on the path's own inputs (the router's embeddings
+    of such a batch, its heads, the engine's constraint matrix and
+    ladder) against their plain versions."""
+    import shutil
+    import tempfile
+    from repro_torch.core.router import router_embed
+    from repro_torch.kernels import tiles
+    from repro_torch.kernels.router_cascade import ops as rc_ops
+    from repro_torch.kernels.router_score import ops as rs_ops
+    from repro_torch.launch import autotune, gates
+    from repro_torch.serving import TryageEngine
+    t0 = time.perf_counter()
+    lib = gates.small_library("cuda")
+    router, rc = gates.small_router(len(lib), uncertainty=True,
+                                    device="cuda")
+    tmp = tempfile.mkdtemp(prefix="tryage_tiles_")
+    path = os.path.join(tmp, "tile_table_torch.json")
+    tuned = autotune.autotune(["router_score"], list(LATENCY_BATCHES),
+                              repeats=5)
+    autotune.write_table(tuned, path)
+    tiles.set_table_path(path)
+    table = []
+    try:
+        with batch_sizes(rs_ops, "router_route") as score_hist, \
+                batch_sizes(rc_ops, "router_route_cascade") as cascade_hist:
+            out = run_gate(torch, "gate_decision_latency",
+                           gates.decision_latency(lib, router, rc,
+                                                  device="cuda",
+                                                  batches=LATENCY_BATCHES,
+                                                  table=table),
+                           ROUTER_PATH)
+    finally:
+        tiles.set_table_path(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    eng = TryageEngine(lib, router, rc, device="cuda")
+    rng = np.random.default_rng(1)
+    cases = []
+    for B in LATENCY_BATCHES:
+        toks = torch.from_numpy(rng.integers(4, 64, size=(B, 32))
+                                .astype(np.int32)).cuda()
+        with torch.inference_mode():
+            emb = router_embed(router, rc, {"tokens": toks})
+        t = {"emb": emb, **{k: router.head[k] for k in ("w1", "b1", "w2",
+                                                       "b2")},
+             **{"u" + k: router.unc[k] for k in ("w1", "b1", "w2", "b2")},
+             "cvals": eng._cmat_dev,
+             "lam": torch.zeros(B, eng._cmat_dev.shape[0], device="cuda"),
+             "ladder": eng._ladder_dev}
+        with torch.inference_mode():
+            cases.append(heads_parity(torch, t, f"on the gate's path at "
+                                               f"B={B}"))
+    out = {"card": card, **out, "table": table,
+           "tile_table": {b: {k: e[k] for k in ("k_groups", "measured_s")}
+                          | {"default": e["default"]}
+                          for b, e in tuned[tiles.backend_key()]
+                          ["router_score"].items()},
+           "router_batch_hist": {
+               "router_score": dict(sorted(score_hist.items())),
+               "router_cascade": dict(sorted(cascade_hist.items()))},
+           "heads_parity": cases, "seconds": time.perf_counter() - t0}
+    emit("gate_decision_latency", **out)
+    return out
+
+
+def gate_mesh_phase(torch, card: str) -> dict:
+    """``bench_mesh`` on the card (``launch.gates.mesh``): the eight-expert
+    library and router drawn from seeds on the card, 256 mixed-flag
+    requests on (1, 1), (1, 2), (1, 4) and (2, 4) meshes over slots of
+    the one card (``make_host_mesh`` repeating it, as ``mesh_path`` (B)
+    does), every (expert, slot, bucket) warmed first; choices identical
+    across sizes, simulated tokens/s at size 4 >= 3x size 1.  One card
+    runs the streams one after another, so the simulated figure is the
+    model the reference gates; the wall seconds stand beside it."""
+    from repro_torch.launch import gates
+    t0 = time.perf_counter()
+    lib = gates.mesh_library("cuda")
+    router, rc = gates.small_router(len(lib), device="cuda")
+    slot = torch.device("cuda", torch.cuda.current_device())
+    table = []
+    out = run_gate(torch, "gate_mesh",
+                   gates.mesh(lib, router, rc, [slot] * 8, table=table),
+                   ("router_score", "flash_attention"))
+    out = {"card": card, **out,
+           "sizes": [{k: v for k, v in r.items() if k != "choices"}
+                     for r in table],
+           "seconds": time.perf_counter() - t0}
+    emit("gate_mesh", **out)
+    return out
+
+
+def gate_cascade_phase(torch, card: str) -> dict:
+    """``bench_cascade`` on the card (``launch.gates.cascade``): 4
+    single-shot and 4 cascade operating points of the 256-request
+    mixed-flag workload through ``run()``, the router's uncertainty head
+    calibrated on the test Q-table first (``calibrate_uncertainty``).
+
+    (A) The gate, on the regime the reference set it on: its cached
+    artifacts are the fast experiment config (``CASCADE_FAST``), which
+    this phase trains on the card into a temporary artifact directory;
+    some cascade point must strictly dominate some single-shot point.
+    (B) The same bench on ``train_path``'s artifacts (the default
+    config, 300 expert steps), read back with ``load_artifacts`` as
+    ``adapt_path`` does: its rows and verdict, recorded.  There the
+    trained specialists beat the larger generalists the cascade
+    escalates to, and the front does not dominate (the same rows on a
+    CPU engine; ``scripts/cascade_regimes.py``)."""
+    import shutil
+    import tempfile
+    from repro_torch.core import experiment as ex
+    from repro_torch.launch import gates
+
+    def bench(art, steps):
+        return gates.cascade(art["library"], art["router_params"],
+                             art["rc"], art["corpus"], expert_steps=steps,
+                             device="cuda",
+                             calibration=(art["test_tokens"],
+                                          art["q_test"]["loss"]))
+
+    t0 = time.perf_counter()
+    rows, verdict = [], "dominates"
+    try:
+        for r in bench(ex.load_artifacts(), ex.load_results()["config"]
+                       ["expert_steps"]):
+            rows.append(list(r))
+    except RuntimeError as e:
+        if "does not dominate" not in str(e):
+            raise
+        verdict = str(e)
+    check(len(rows) == 13, f"gate_cascade (B): {len(rows)} rows")
+    default = {"expert_steps": ex.ExperimentConfig().expert_steps,
+               "rows": rows, "verdict": verdict,
+               "seconds": time.perf_counter() - t0}
+
+    t1 = time.perf_counter()
+    saved, tmp = ex.ART_DIR, tempfile.mkdtemp(prefix="tryage_cascade_")
+    try:
+        ex.ART_DIR = tmp
+        ex.run_experiment(ex.ExperimentConfig(**CASCADE_FAST),
+                          verbose=False, save=True, device="cuda")
+        train_s = time.perf_counter() - t1
+        out = run_gate(torch, "gate_cascade",
+                       bench(ex.load_artifacts(),
+                             CASCADE_FAST["expert_steps"]),
+                       ("router_score", "flash_attention"))
+    finally:
+        ex.ART_DIR = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": card, "config": CASCADE_FAST, **out,
+           "train_seconds": train_s, "train_path_artifacts": default,
+           "seconds": time.perf_counter() - t0}
+    emit("gate_cascade", **out)
+    return out
+
+
 # -------------------------------------------------------------- phase 5
 
 def device_profile(torch, fn, wall_ms, top=8, match=None,
@@ -3751,8 +4010,9 @@ def xlstm_dryrun(torch) -> dict:
 
 
 def slstm_chunk_cost(torch) -> dict:
-    """The card's cost of the sLSTM's chunk checkpoints: xlstm's 16-layer
-    ``zoo_train`` step (bf16, 2 x 512, remat) with the sLSTM as the
+    """The card's cost of the sLSTM's chunk checkpoints: xlstm's
+    ``zoo_train`` step at one 8-layer unit (bf16, 2 x 512, remat; one
+    unit for the script's time) with the sLSTM as the
     chunked scan and as the per-step loop it replaced
     (``ssm._slstm_per_step``), on the same
     weights (lr 0: the weights do not move): ms of a step after a
@@ -3764,8 +4024,8 @@ def slstm_chunk_cost(torch) -> dict:
     from repro_torch.models import ssm
     from repro_torch.optim import adamw_init
 
-    arch, cut, B, S, _ = ZOO_TRAIN[2]
-    cfg = dataclasses.replace(get_config(arch), **cut)
+    arch, _, B, S, _ = ZOO_TRAIN[2]
+    cfg = dataclasses.replace(get_config(arch), num_layers=SLSTM_COST_LAYERS)
     model = model_lib.init_model(cfg, seed=31, device="cuda")
     opt = adamw_init(model)
     batch = zoo_train_batch(torch, cfg, B, S, 31)
@@ -3821,6 +4081,20 @@ def times_phase(torch, launches_per_run: dict, err: dict,
          *rs_ops.head_cost(B, d, hh, M, n_c, cascade=True)[::-1], shape,
          None),
     ]
+    # both heads at the largest batch the decision_latency gate decides
+    Bl = LATENCY_BATCHES[-1]
+    tl = head_inputs(torch, Bl, M, d, hh, n_c, seed=Bl)
+    sl = [tl[k] for k in SCORE_ARGS]
+    cl = [tl[k] for k in CASCADE_ARGS]
+    large = [
+        ("router_score", lambda: rs_ops.router_score_fused(*sl),
+         lambda: rs_ops.router_score_plain(*sl), None,
+         *rs_ops.head_cost(Bl, d, hh, M, n_c, cascade=False)[::-1],
+         {**shape, "B": Bl}, None),
+        ("router_cascade", lambda: rc_ops.router_score_cascade_fused(*cl),
+         lambda: rc_ops.router_cascade_plain(*cl), None,
+         *rs_ops.head_cost(Bl, d, hh, M, n_c, cascade=True)[::-1],
+         {**shape, "B": Bl}, None)]
     B, S, H, dh = XLSTM_B, XLSTM_S, 4, 1024
     L = min(64, S)
     ml_args = mlstm_inputs(torch, B, S, H, dh, False, seed=2)
@@ -3852,7 +4126,7 @@ def times_phase(torch, launches_per_run: dict, err: dict,
     fwd_states = {n: (lambda keep=keep, a=bwd_args: ml_ops._launch(*a, keep))
                   for n, keep in (("with_states", True),
                                   ("without_states", False))}
-    extra = []
+    extra = large
     # the main path's shape first, then hd 40, 8 heads, and the batch
     # sizes most of run()'s launches take (1 to 8)
     for i, (Bq, H, hd) in enumerate(((32, 4, 32), (32, 4, 40), (32, 8, 32),
@@ -3913,7 +4187,8 @@ def times_phase(torch, launches_per_run: dict, err: dict,
                  "max_abs_err": err[name],
                  "ms": events_ms(torch, kern),
                  "device_ms": profiled_ms(torch, kern, SOURCES[name][2]),
-                 "plain_ms": events_ms(torch, plain),
+                 "plain_ms": events_ms(torch, plain, iters=PLAIN_ITERS,
+                                       warmup=3),
                  "bound_ms": bms, "bound_by": by,
                  "library_ms": (events_ms(torch, libcall)
                                 if libcall is not None else None),
@@ -3948,8 +4223,9 @@ def times_phase(torch, launches_per_run: dict, err: dict,
          launch_floor=launch_floor(torch, rs_ops.decision_plan(32, d, hh)),
          router_buckets=router_buckets(
              torch, rs_ops, rc_ops, d, hh, M, n_c),
-         method="ms/plain_ms/library_ms: CUDA events over 200 back-to-back "
-                "calls after 20 warm-up calls; device_ms/library_device_ms: "
+         method="ms/library_ms: CUDA events over 200 back-to-back calls "
+                "after 20 warm-up calls, plain_ms over 20 after 3; "
+                "device_ms/library_device_ms: "
                 "profiler device time of the call's kernels alone "
                 "(null where the profiler's trace shows none); "
                 "library_max_abs_err: the library call against the plain "
@@ -4353,6 +4629,9 @@ def main() -> int:
     main, run_res = main_path_phase(torch, setup)
     serve_path_phase(torch, setup, run_res, main, info["nvidia_smi"])
     mesh_path_phase(torch, setup, run_res, info["nvidia_smi"])
+    gate_slo_phase(torch, info["nvidia_smi"])
+    gate_decision_latency_phase(torch, info["nvidia_smi"])
+    gate_mesh_phase(torch, info["nvidia_smi"])
     sanitize_phase(torch, setup, run_res)
     autotune_phase(torch, setup, run_res)
     checkpoint_phase(torch)
@@ -4368,6 +4647,7 @@ def main() -> int:
     zoo_train_crosscheck_phase(torch)
     train_cli_phase(torch)
     train = train_path_phase(torch)
+    gate_cascade_phase(torch, info["nvidia_smi"])
     adapt_path_phase(torch)
     tiers = cache_tiers_phase(torch)
     serve_cli_phase(torch, tiers["eps"])

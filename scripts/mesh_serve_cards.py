@@ -2,7 +2,8 @@
 """Serve the Tryage library on (data, model) meshes of separate cards and
 hold every mesh to the meshless engine.
 
-    python3 scripts/mesh_serve_cards.py [--repeats 3] [--cpu] [--out FILE]
+    python3 scripts/mesh_serve_cards.py [--repeats 3] [--cpu] [--gate-only]
+                                        [--out FILE]
 
 One process over every visible card, no process group: the engine's mesh
 puts router and expert replicas on the cards itself.  The workload is
@@ -55,6 +56,17 @@ The CLI: ``python -m repro_torch.launch.serve --fifo --requests 256
 ``--mesh 1,4`` (needing four cards) must exit 0, answer every request
 and flush on more than one card.  Without trained artifacts the first
 run trains the CLI's reduced experiment on ``cuda:0`` first.
+
+The mesh gate (``benchmarks/run.py``'s ``bench_mesh`` through
+``launch.gates.mesh``): its eight-expert library and router drawn from
+seeds on ``cuda:0``, 256 mixed-flag requests on (1, 1), (1, 2) and (1,
+4) meshes of separate cards, each warmed (``warm_mesh``) and then timed;
+the (2, 4) mesh needs eight cards, and with fewer it is skipped with
+that reason.
+Choices must be identical across sizes and the simulated tokens/s
+(StreamClock's makespan) at size 4 must be >= 3x size 1; the wall
+tokens/s stand beside it, not gated, as in the reference.
+``--gate-only`` runs this case alone.
 
 ``--cpu`` runs the same cases over repeated CPU slots
 (``make_host_mesh(d, m, devices=["cpu"] * (d * m), platform="cpu")``)
@@ -794,6 +806,32 @@ def cli_case(mesh: str, extra: list, cpu: bool) -> dict:
             "stream_flushes": flushes, "cards_flushed": len(cards)}
 
 
+# ---------------------------------------------------------- mesh gate
+
+def gate_case(torch, cpu: bool) -> dict:
+    """``launch.gates.mesh`` over the visible cards (or four CPU slots):
+    its rows, and per mesh size the simulated and wall tokens/s side by
+    side.  With ``--cpu`` the scaling gate, read off wall time, is not
+    applied."""
+    from repro_torch.launch import gates
+    devices = ([torch.device("cpu")] * 4 if cpu else
+               [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())])
+    lib = gates.mesh_library(devices[0])
+    router, rc = gates.small_router(len(lib), device=devices[0])
+    table = []
+    rows = [[n, v, d] for n, v, d in gates.mesh(
+        lib, router, rc, devices, timing_gates=not cpu, table=table)]
+    return {"devices": [str(d) for d in devices], "rows": rows,
+            "sizes": [{"mesh_size": r["mesh_size"],
+                       "simulated_tokens_per_s": r["tokens_per_s"],
+                       "wall_tokens_per_s": r["tokens"] / r["wall_s"],
+                       **{k: r[k] for k in ("tokens", "makespan_s",
+                                            "total_busy_s", "wall_s",
+                                            "busy_s", "stream_tokens")}}
+                      for r in table]}
+
+
 # --------------------------------------------------------------- main
 
 def attempt(fn, *args, **kw) -> dict:
@@ -817,12 +855,14 @@ def main(argv=None) -> int:
                     help="timed runs of each engine in (f)")
     ap.add_argument("--cpu", action="store_true",
                     help="repeated CPU slots and a tiny library")
+    ap.add_argument("--gate-only", action="store_true",
+                    help="run the mesh gate alone")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     shapes = [tuple(int(x) for x in m.split("x")) for m in MESHES]
     card = "cpu"
     if not args.cpu:
-        need = max(d * m for d, m in shapes)
+        need = 4 if args.gate_only else max(d * m for d, m in shapes)
         if not torch.cuda.is_available() or torch.cuda.device_count() < need:
             raise SystemExit(f"needs {need} cards, sees "
                              f"{torch.cuda.device_count()}")
@@ -836,6 +876,9 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()
     result = {"card": card, "torch": torch.__version__}
+    result["gate_mesh"] = attempt(gate_case, torch, args.cpu)
+    if args.gate_only:
+        return report(result, [result["gate_mesh"]], args.out)
     result["kernels"] = attempt(kernels_on_cards, torch, args.cpu)
     s = setup(torch, args.cpu)
     parts = ("serve", "run", "failures", "adapt", "throughput")
@@ -850,12 +893,18 @@ def main(argv=None) -> int:
             repeats=args.repeats))
     result["cli"] = [attempt(cli_case, mesh, extra, args.cpu)
                      for mesh, extra in CLI_MESHES]
-    cases = [result["kernels"]] + result["meshes"] + result["cli"]
+    return report(result, [result["gate_mesh"], result["kernels"]]
+                  + result["meshes"] + result["cli"], args.out)
+
+
+def report(result: dict, cases: list, out: Path | None) -> int:
+    """Print the result (and write it to ``out``); 0 when every case
+    held."""
     result["ok"] = all(c["ok"] for c in cases)
     text = json.dumps(result)
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(text)
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(text)
     print(text)
     return 0 if result["ok"] else 1
 

@@ -107,13 +107,15 @@ def backward_chunk(S: int, dh: int, L: int | None = None) -> int:
 def forward_cost(B, S, H, dh, L, keep_states=False) -> tuple[int, int]:
     """(f32 operations, bytes) of one forward call at chunk L: per row
     and chunk q k^T and (W * S) v (2 L^2 dh each), q C and k^T v (2 L
-    dh^2 each); q, k, v, h, both states, i, f and m moved once, and the
+    dh^2 each) and the normaliser's q n (2 L dh, the kernel's extra
+    n-tile); q, k, v, h, both states, i, f and m moved once, and the
     chunk-start states when written."""
     nbytes = 4 * (4 * B * S * H * dh + 2 * B * H * dh * dh + 2 * B * H * dh
                   + 2 * B * S * H + 2 * B * H)
     if keep_states:
         nbytes += 4 * B * H * (S // L) * (dh * dh + dh + 1)
-    return (B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh), nbytes)
+    return (B * H * (S // L) * (4 * L * L * dh + 4 * L * dh * dh
+                                 + 2 * L * dh), nbytes)
 
 
 def backward_cost(B, S, H, dh, L) -> tuple[int, int]:

@@ -8,7 +8,9 @@ Each test decides about the card in its body and skips without one.
 
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``): it flips near-tie argmins.
-Tolerances: router heads rtol=atol=1e-5 and exact choices; attention
+Tolerances: router heads rtol=atol=1e-5 and exact choices (at 1,000 to
+16,000 rows: but at a near tie of the constrained scores, under 1e-5);
+attention
 rtol=1e-5, atol=2e-5 (the kernel's online softmax sums in another
 order than the plain full softmax, and its products run in 3xTF32,
 which keeps f32 accuracy: tests/test_torch_tf32.py); mLSTM scan, also
@@ -290,6 +292,32 @@ def test_router_kernels_match_plain(B, d, hh, M, n_c, tied):
             assert torch.equal(g, w)
         else:
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B", [1000, 4000, 16000])
+def test_router_kernels_at_large_batches(B):
+    """The batches the decision_latency gate decides (an 8-block cluster
+    a row: a grid of 8 x 16,000 at the largest): predictions and sigma
+    within 1e-5, choices and escalation targets identical but where the
+    plain version's constrained scores of the two differ by under 1e-5
+    (an escalation target only where the pick agrees)."""
+    _card()
+    M = PATH_WIDTH[2]
+    t = _head_case(B, M, False, seed=B)
+    score, choice, cpred, sigma, cchoice, esc = _router_both(t, _ladder(M))
+    (pscore, pchoice, qpred, qsigma, qchoice,
+     qesc) = _router_both(t, _ladder(M), plain=True)
+    for g, w in ((score, pscore), (cpred, qpred), (sigma, qsigma)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    combined = pscore + t["lam"] @ t["cvals"]
+    rows = torch.arange(B, device="cuda")
+    same = cchoice == qchoice     # an escalation target follows its pick
+    for got, want, keep in ((choice, pchoice, True), (cchoice, qchoice, True),
+                            (esc, qesc, same)):
+        diff = ((got != want) & keep).nonzero().flatten()
+        gap = (combined[rows[diff], got[diff].long()]
+               - combined[rows[diff], want[diff].long()]).abs()
+        assert bool((gap < 1e-5).all()), (diff, gap)
 
 
 def test_router_kernels_pad_rows_leave_real_rows():

@@ -63,7 +63,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "configs.qwen2_vl_72b", "kernels.sanitize",
                 "kernels.tiles", "checkpoint", "checkpoint.store",
                 "launch.roofline", "launch.op_costs", "launch.dryrun",
-                "launch.autotune", "launch.mesh", "serving.placement"):
+                "launch.autotune", "launch.mesh", "serving.placement",
+                "launch.gates"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -87,6 +88,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                    params=init_model(cfg, device="cpu"))])
     with pytest.raises(RuntimeError, match="CUDA"):
         TryageEngine(lib, init_router(rc, device="cpu"), rc)
+    from repro_torch.launch import gates
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gates.small_library()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gates.small_router(3)
 
 
 def test_xlstm_entry_points_raise_without_a_card(monkeypatch):

@@ -79,3 +79,21 @@ def test_kernels_and_cli_cases(report):
     # one CPU device backs no mesh of four: the CLI keeps the count error
     for case in rep["cli"]:
         assert "needs 4 devices but only 1 is visible" in case["count_error"]
+
+
+def test_mesh_gate_case(report):
+    """The mesh gate over four CPU slots: sizes 1, 2 and 4 run, size 8 is
+    skipped with its reason, choices agree across sizes, and each size
+    reports its simulated and wall tokens/s over every served token."""
+    _, rep = report
+    gate = rep["gate_mesh"]
+    assert gate["ok"] and gate["devices"] == ["cpu"] * 4
+    rows = {name: (value, derived) for name, value, derived in gate["rows"]}
+    assert rows["mesh/size8_skipped"] == (1.0, "needs 8 devices, have 4")
+    assert rows["mesh/choice_match"][0] == 1.0
+    assert [s["mesh_size"] for s in gate["sizes"]] == [1, 2, 4]
+    for size in gate["sizes"]:
+        assert size["tokens"] == sum(size["stream_tokens"]) == 256 * 64
+        assert size["makespan_s"] == max(size["busy_s"])
+        assert size["simulated_tokens_per_s"] > 0
+        assert size["wall_tokens_per_s"] > 0
